@@ -1,0 +1,100 @@
+"""K3: whole-frame label convergence.
+
+Counterpart of swiftwatcher_tpu/ops/pallas/ccl_local.py:converge_frames.
+Floods each frame of an (N, H, W) f32 label batch to its exact fixpoint
+under its bool foreground, by super-sweeps of
+
+    3x3 min sweep -> segmented running min along rows (left to right,
+    then right to left) -> along columns (top to bottom, then bottom to top)
+
+until a super-sweep changes nothing or `max_iters` have run.  A run is a
+stretch of foreground; labels never cross background.  A component then
+converges in about as many super-sweeps as its geodesic has changes of
+direction.  The slow path of label_components (ops/ccl.py) runs it.
+
+On a CUDA tensor `converge_frames` launches csrc/ccl_local.cu; on a CPU
+tensor it runs `converge_frames_reference`, which scans by log-doubling as
+the TPU kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import build
+from .ccl_sweep import min_sweep
+
+
+def _shift(a: torch.Tensor, k: int, dim: int, fill, forward: bool) -> torch.Tensor:
+    """out[p] = a[p - k] along `dim` when forward (fill at the low edge),
+    a[p + k] when backward."""
+    L = a.shape[dim]
+    shape = list(a.shape)
+    shape[dim] = k
+    blk = torch.full(shape, fill, dtype=a.dtype, device=a.device)
+    if forward:
+        return torch.cat([blk, a.narrow(dim, 0, L - k)], dim)
+    return torch.cat([a.narrow(dim, k, L - k), blk], dim)
+
+
+def _seg_min_scan(
+    v: torch.Tensor, bg: torch.Tensor, sentinel: float, dim: int, forward: bool
+) -> torch.Tensor:
+    """Running min along `dim` within foreground runs (log-doubling over
+    (value, window-holds-a-gap) pairs)."""
+    b = bg
+    k = 1
+    while k < v.shape[dim]:
+        vs = _shift(v, k, dim, sentinel, forward)
+        bs = _shift(b, k, dim, True, forward)
+        v = torch.where(b, v, torch.minimum(v, vs))
+        b = b | bs
+        k <<= 1
+    return v
+
+
+def converge_frames_reference(
+    lbl: torch.Tensor, fg: torch.Tensor, max_iters: int, sentinel: float
+) -> torch.Tensor:
+    """Plain PyTorch version of K3.  Frames at their fixpoint stay there,
+    so sweeping the batch until no frame changes gives each frame its own
+    count of super-sweeps, as the per-frame kernel does."""
+    bg = ~fg
+    changed, it = True, 0
+    while changed and it < max_iters:
+        new = min_sweep(lbl, fg, sentinel)
+        for dim, forward in ((2, True), (2, False), (1, True), (1, False)):
+            new = _seg_min_scan(new, bg, sentinel, dim, forward)
+        changed = bool((new != lbl).any())
+        lbl, it = new, it + 1
+    return lbl
+
+
+def converge_frames(
+    lbl: torch.Tensor, fg: torch.Tensor, max_iters: int, sentinel: float
+) -> torch.Tensor:
+    """(N, H, W) f32 labels + bool fg -> labels at the per-frame fixpoint
+    (or after `max_iters` super-sweeps)."""
+    if lbl.device.type == "cpu":
+        return converge_frames_reference(lbl, fg, max_iters, sentinel)
+    build.check_operand("converge_frames", lbl, torch.float32)
+    build.check_operand("converge_frames", fg, torch.bool, like=lbl)
+    N, H, W = lbl.shape
+    if H * W >= 1 << 24:
+        raise ValueError("converge_frames: crop too large for exact f32 labels")
+    if max_iters < 0:
+        raise ValueError(f"converge_frames: max_iters must be >= 0, got {max_iters}")
+    out = torch.empty_like(lbl)
+    if N == 0:
+        return out
+    scratch = torch.empty_like(lbl)
+    build.launch(
+        "ccl_local", "swt_converge_frames", lbl.device,
+        lbl.data_ptr(), fg.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        N, H, W, max_iters, float(sentinel),
+    )
+    converge_frames.launches += 1
+    return out
+
+
+converge_frames.launches = 0

@@ -1,0 +1,121 @@
+"""K2 and K4: connected-component labelling and rank compaction.
+
+Counterpart of swiftwatcher_tpu/ops/pallas/rank_compact.py.
+
+K2, `label_rank_fused`, is the whole labelling of the fast path.  Per frame
+of an (N, H, W) bool foreground batch: seed labels with the raster index
+(background = sentinel H*W), run `sweeps` Jacobi 3x3 min sweeps under fg,
+certify the fixpoint with one probe sweep, rank the roots by a raster-order
+count, seed the ranks and sweep them `sweeps` times.  Returns (swept f32
+labels, compact int32 labels with background 0, (N,) bool "not converged"
+flag).  A converged frame's compact labels are exact (the rank flood
+propagates from the same unique roots as the label flood); a flagged frame
+must be recomputed by the caller (ops/ccl.py).
+
+K4, `rank_seed_sweep`, is the compaction half alone, for the slow path:
+converged f32 labels (foreground = label < sentinel) -> seeded ranks ->
+`sweeps` sweeps -> f32 rank map (background = sentinel).
+
+On a CUDA tensor each wrapper launches csrc/rank_compact.cu; on a CPU
+tensor it runs its `*_reference` version.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import build
+from .ccl_sweep import min_sweep, sweep_chunk_reference
+
+# Sweeps per flood stage, as the JAX package's RANK_SWEEPS: covers
+# components of flood distance <= 12 (single blobs and merged pairs).
+RANK_SWEEPS = 12
+
+
+def raster_index(H: int, W: int, device) -> torch.Tensor:
+    """(H, W) f32 raster index, exact below 2^24 pixels."""
+    return torch.arange(H * W, device=device, dtype=torch.float32).reshape(H, W)
+
+
+def _seed_ranks(lbl: torch.Tensor, fg: torch.Tensor, P: float) -> torch.Tensor:
+    """Roots (fg pixels labelled with their own raster index) get their
+    1-based raster-order rank; every other pixel gets P."""
+    N, H, W = lbl.shape
+    is_root = fg & (lbl == raster_index(H, W, lbl.device))
+    csum = torch.cumsum(is_root.flatten(1).to(torch.int32), dim=1).reshape(N, H, W)
+    return torch.where(is_root, csum.to(torch.float32), torch.full_like(lbl, P))
+
+
+def label_rank_fused_reference(
+    fg: torch.Tensor, sweeps: int = RANK_SWEEPS
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2, same outputs."""
+    N, H, W = fg.shape
+    P = float(H * W)
+    idx = raster_index(H, W, fg.device)
+    lbl = sweep_chunk_reference(torch.where(fg, idx, torch.full_like(idx, P)), fg, sweeps, P)
+    flag = (min_sweep(lbl, fg, P) != lbl).flatten(1).any(dim=1)
+    rank = sweep_chunk_reference(_seed_ranks(lbl, fg, P), fg, sweeps, P)
+    labels = torch.where(fg, rank, torch.zeros_like(rank)).to(torch.int32)
+    return lbl, labels, flag
+
+
+def label_rank_fused(
+    fg: torch.Tensor, sweeps: int = RANK_SWEEPS
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, H, W) bool fg -> (swept f32 labels, int32 labels, (N,) bool flag)."""
+    if fg.device.type == "cpu":
+        return label_rank_fused_reference(fg, sweeps)
+    build.check_operand("label_rank_fused", fg, torch.bool)
+    N, H, W = fg.shape
+    if H * W >= 1 << 24:
+        raise ValueError("label_rank_fused: crop too large for exact f32 labels")
+    lbl = torch.empty((N, H, W), dtype=torch.float32, device=fg.device)
+    labels = torch.empty((N, H, W), dtype=torch.int32, device=fg.device)
+    flag = torch.empty((N,), dtype=torch.uint8, device=fg.device)
+    if N == 0:
+        return lbl, labels, flag.bool()
+    scratch = torch.empty_like(lbl)
+    build.launch(
+        "rank_compact", "swt_label_rank_fused", fg.device,
+        fg.data_ptr(), lbl.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
+        flag.data_ptr(), N, H, W, sweeps,
+    )
+    label_rank_fused.launches += 1
+    return lbl, labels, flag.bool()
+
+
+label_rank_fused.launches = 0
+
+
+def rank_seed_sweep_reference(lbl: torch.Tensor, sweeps: int = RANK_SWEEPS) -> torch.Tensor:
+    """Plain PyTorch version of K4."""
+    N, H, W = lbl.shape
+    P = float(H * W)
+    fg = lbl < P
+    return sweep_chunk_reference(_seed_ranks(lbl, fg, P), fg, sweeps, P)
+
+
+def rank_seed_sweep(lbl: torch.Tensor, sweeps: int = RANK_SWEEPS) -> torch.Tensor:
+    """(N, H, W) converged f32 labels -> f32 rank map after `sweeps` sweeps."""
+    if lbl.device.type == "cpu":
+        return rank_seed_sweep_reference(lbl, sweeps)
+    build.check_operand("rank_seed_sweep", lbl, torch.float32)
+    N, H, W = lbl.shape
+    if H * W >= 1 << 24:
+        raise ValueError("rank_seed_sweep: crop too large for exact f32 labels")
+    out = torch.empty_like(lbl)
+    if N == 0:
+        return out
+    scratch = torch.empty_like(lbl)
+    build.launch(
+        "rank_compact", "swt_rank_seed_sweep", lbl.device,
+        lbl.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, H, W, sweeps,
+    )
+    rank_seed_sweep.launches += 1
+    return out
+
+
+rank_seed_sweep.launches = 0

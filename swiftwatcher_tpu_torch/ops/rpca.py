@@ -1,0 +1,198 @@
+"""RPCA background subtraction by inexact augmented Lagrange multipliers.
+
+Counterpart of swiftwatcher_tpu/ops/rpca.py (`ialm_rpca_batched` with the
+warm basis, and the helpers on its path).  The SVD of each tall-skinny
+iterate (T = 21 frames x P pixels) is taken through its row space: a T x T
+eigendecomposition refined by Newton steps, then a one-sided polish round
+that restores relative accuracy on the small singular values.  The products
+are `torch.matmul`, the 21 x 21 work `torch.linalg.eigh`/`qr`.
+
+Quirks of the reference kept on purpose:
+  * the svp length quirk: every iteration keeps all T singular values, so
+    `S - 1/mu` may go negative;
+  * "norm_two" is the Frobenius norm of the raveled matrix;
+  * norms are floored at 1e-12 so an all-zero window converges at once;
+  * motion is the negated sparse part, clipped to [0, 255] before the
+    uint8 cast.
+
+The dynamic loop reads `any(active)` back to the host once per iteration.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import DEFAULT_CONFIG, PipelineConfig
+
+_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+    "uint8": torch.uint8,
+}
+
+
+def _t(a: torch.Tensor) -> torch.Tensor:
+    return a.transpose(-1, -2)
+
+
+def _refined_eigh(G: torch.Tensor, steps: int = 2):
+    """eigh with first-order Newton refinement: V <- orth(V (I + F)),
+    F_ij = (V^T G V)_ij / (d_j - d_i), clamped, skipped for clustered
+    eigenvalues."""
+    _, V = torch.linalg.eigh(G)
+    n = G.shape[-1]
+    eye = torch.eye(n, dtype=G.dtype, device=G.device)
+    tiny = torch.finfo(G.dtype).tiny
+    evals = None
+    for _ in range(steps):
+        R = _t(V) @ (G @ V)
+        d = torch.diagonal(R, dim1=-2, dim2=-1)
+        diff = d[..., None, :] - d[..., :, None]
+        scale = d.abs().amax(dim=-1, keepdim=True)[..., None] + tiny
+        safe = torch.where(diff.abs() > 1e-12 * scale, diff, torch.full_like(diff, float("inf")))
+        F = torch.clamp(R / safe, -0.5, 0.5) * (1.0 - eye)
+        V, _ = torch.linalg.qr(V @ (eye + F))
+        evals = d
+    return evals, V
+
+
+def ialm_rpca_batched(
+    X: torch.Tensor,
+    lmbda: float = 0.01,
+    tol: float = 0.001,
+    max_iter: int = 100,
+    rho: float = 1.5,
+    mu_cap: float = 1e7,
+    x_store_dtype: Optional[str] = None,
+    store_y_dtype: Optional[str] = None,
+    store_ae_dtype: Optional[str] = None,
+    fixed_iters: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched warm-basis IALM over row-convention X (B, T, P).
+
+    Converged windows are frozen while the rest finish.  Returns (A, E,
+    iters): A and E are (B, T, P) in X's dtype, iters is (B,) int32.
+
+    x_store_dtype holds X between uses ('uint8' is lossless for uint8-origin
+    windows); store_y_dtype / store_ae_dtype round the loop-carried Y and
+    (A, E) to that dtype between iterations (lossy, PARITY deviation 8).
+    fixed_iters > 0 runs exactly that many iterations with no stopping test
+    and no freeze masks."""
+    dtype = X.dtype
+    sd_x = _DTYPES[x_store_dtype] if x_store_dtype else None
+    sd_y = _DTYPES[store_y_dtype] if store_y_dtype else None
+    sd_ae = _DTYPES[store_ae_dtype] if store_ae_dtype else None
+    eps = torch.finfo(dtype).eps
+    tiny = torch.finfo(dtype).tiny
+
+    frob = torch.sqrt((X * X).sum(dim=(-2, -1))).clamp(min=1e-12)   # (B,)
+    norm_inf = X.abs().amax(dim=(-2, -1)) / lmbda
+    dual = torch.maximum(frob, norm_inf)
+    Y0 = X / dual[..., None, None]
+    mu0 = 1.25 / frob
+    Xs = X.to(sd_x) if sd_x is not None else X
+
+    def update(A_s, Y_s, mu, V):
+        A = A_s.to(dtype)
+        Y = Y_s.to(dtype)
+        Xf = Xs.to(dtype)
+        inv_mu = (1.0 / mu)[..., None, None]
+        Eraw = Xf - A + inv_mu * Y
+        Eupd = torch.clamp(Eraw - lmbda * inv_mu, min=0.0) + torch.clamp(
+            Eraw + lmbda * inv_mu, max=0.0
+        )
+        M = Xf - Eupd + inv_mu * Y
+        # Row-space SVD with the carried basis V0 and one polish round:
+        # A = V diag(r) V^T M = [(V diag r) V1^T] (V0^T M) = Q W1.
+        W1 = _t(V) @ M
+        C = W1 @ _t(W1)
+        d, V1 = _refined_eigh(C)
+        S = torch.sqrt(torch.clamp(d, min=0.0))
+        Vn = V @ V1
+        floor = eps * S.amax(dim=-1, keepdim=True) + tiny
+        ratio = (S - (1.0 / mu)[..., None]) / torch.maximum(S, floor)
+        Q = (Vn * ratio[..., None, :]) @ _t(V1)
+        Aupd = Q @ W1
+        Z = Xf - Aupd - Eupd
+        Ynew = Y + mu[..., None, None] * Z
+        mu_new = torch.minimum(mu * rho, mu * mu_cap)
+        return Aupd, Eupd, Ynew, mu_new, Vn, Z
+
+    def store(a, sd):
+        return a.to(sd) if sd is not None else a
+
+    B, T = X.shape[0], X.shape[1]
+    # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
+    M0 = X + (1.0 / mu0)[..., None, None] * Y0
+    _, V = _refined_eigh(M0 @ _t(M0))
+    A = E = torch.zeros_like(X, dtype=sd_ae if sd_ae is not None else dtype)
+    Y = store(Y0, sd_y)
+    mu = mu0
+    if fixed_iters > 0:
+        for _ in range(fixed_iters):
+            Aupd, Eupd, Ynew, mu, V, _ = update(A, Y, mu, V)
+            A, E, Y = store(Aupd, sd_ae), store(Eupd, sd_ae), store(Ynew, sd_y)
+        iters = torch.full((B,), fixed_iters, dtype=torch.int32, device=X.device)
+        return A.to(dtype), E.to(dtype), iters
+
+    itr = torch.zeros((B,), dtype=torch.int32, device=X.device)
+    err = torch.full((B,), float("inf"), dtype=dtype, device=X.device)
+    while True:
+        active = (err >= tol) & (itr < max_iter)                     # (B,)
+        if not bool(active.any()):
+            break
+        Aupd, Eupd, Ynew, mu_new, Vn, Z = update(A, Y, mu, V)
+        err_new = torch.sqrt((Z * Z).sum(dim=(-2, -1))) / frob
+        keep = active[..., None, None]
+        A = torch.where(keep, store(Aupd, sd_ae), A)
+        E = torch.where(keep, store(Eupd, sd_ae), E)
+        Y = torch.where(keep, store(Ynew, sd_y), Y)
+        mu = torch.where(active, mu_new, mu)
+        V = torch.where(keep, Vn, V)
+        itr = itr + active.to(torch.int32)
+        err = torch.where(active, err_new, err)
+    return A.to(dtype), E.to(dtype), itr
+
+
+def ialm_gates_and_kwargs(cfg: PipelineConfig, dtype: torch.dtype) -> dict:
+    """ialm_rpca_batched keyword arguments from a PipelineConfig.
+
+    The port carries only the warm-basis solver (the shipped default); the
+    cold-start solver and its fused front kernel are not ported yet."""
+    if not cfg.rpca_warm_basis:
+        raise NotImplementedError(
+            "rpca_warm_basis=False needs the cold-start solver and kernel K6 "
+            "(ROADMAP.md, TPU kernels to port: K6)"
+        )
+    state_sd = "bfloat16" if (cfg.rpca_state_bf16 and dtype == torch.float32) else None
+    return dict(
+        lmbda=cfg.rpca_lambda,
+        tol=cfg.rpca_tol,
+        max_iter=cfg.rpca_max_iter,
+        rho=cfg.rpca_rho,
+        mu_cap=cfg.rpca_mu_cap,
+        x_store_dtype="uint8" if cfg.rpca_store_x_u8 else None,
+        store_y_dtype=state_sd,
+        store_ae_dtype=state_sd,
+        fixed_iters=cfg.rpca_fixed_iters,
+    )
+
+
+def motion_from_E(E: torch.Tensor, P: int) -> torch.Tensor:
+    """Sparse part -> uint8 motion: clip(-E, 0, 255) on the first P pixels."""
+    return torch.clamp(-E[..., :P], 0.0, 255.0).to(torch.uint8)
+
+
+def rpca_motion_window_batched(
+    gray_windows: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, H, W) uint8 -> ((B, T, H, W) uint8 motion, (B,) int32 iters)."""
+    B, T, H, W = gray_windows.shape
+    dtype = _DTYPES[cfg.rpca_dtype]
+    P = H * W
+    X = gray_windows.reshape(B, T, P).to(dtype)
+    _, E, iters = ialm_rpca_batched(X, **ialm_gates_and_kwargs(cfg, dtype))
+    return motion_from_E(E, P).reshape(B, T, H, W), iters

@@ -1,0 +1,41 @@
+"""The per-batch localisation program.
+
+Counterpart of swiftwatcher_tpu/pipeline/window.py:localize_windows_gray:
+
+    IALM RPCA -> fused motion filter (K1) -> 8-connected CCL (K2)
+    -> uint8 label wrap -> region tables
+
+over a (B, T, H, W) uint8 gray batch on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import DEFAULT_CONFIG, PipelineConfig
+from ..ops.ccl import label_components, wrap_labels_uint8
+from ..ops.filtering import apply_postfilter
+from ..ops.props import RegionTable, region_tables
+from ..ops.rpca import rpca_motion_window_batched
+
+
+def localize_windows_gray(
+    gray: torch.Tensor,
+    cfg: PipelineConfig = DEFAULT_CONFIG,
+) -> Tuple[RegionTable, torch.Tensor]:
+    """(B, T, H, W) uint8 gray -> (RegionTable of (B, T, 256), (B,) iters)."""
+    if cfg.stabilize_max_shift > 0:
+        raise NotImplementedError(
+            "stabilize_max_shift > 0 is not ported yet "
+            "(ROADMAP.md, modules to port: opt-ins)"
+        )
+    B, T, H, W = gray.shape
+    motion, iters = rpca_motion_window_batched(gray, cfg)
+    filtered = apply_postfilter(motion.reshape(B * T, H, W), cfg)
+    labels, _ = label_components(filtered > 0, cfg.ccl_max_iters)
+    labels_u8 = wrap_labels_uint8(labels, cfg.label_modulus)
+    # tracking and events read centroids only
+    table = region_tables(labels_u8, with_bbox=False)
+    return table.map(lambda a: a.reshape(B, T, *a.shape[1:])), iters

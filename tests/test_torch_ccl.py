@@ -1,0 +1,211 @@
+"""Port vs JAX package: the plain versions of K2-K5 against the Pallas
+kernels in interpret mode, and label_components with its slow path.
+
+Tolerance: bit-equal labels, counts, swept labels, rank maps and flagged
+frames."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from swiftwatcher_tpu.ops.ccl import label_components as jax_label_components
+from swiftwatcher_tpu.ops.ccl import wrap_labels_uint8 as jax_wrap
+from scipy import ndimage
+
+from swiftwatcher_tpu.ops.pallas.ccl_local import converge_frames as jax_converge_frames
+from swiftwatcher_tpu.ops.pallas.ccl_sweep import sweep_chunk as jax_sweep_chunk
+from swiftwatcher_tpu.ops.pallas.rank_compact import label_rank_fused as jax_label_rank_fused
+from swiftwatcher_tpu.ops.pallas.rank_compact import rank_seed_sweep as jax_rank_seed_sweep
+from swiftwatcher_tpu_torch.ops import ccl as port_ccl
+from swiftwatcher_tpu_torch.ops.ccl import label_components, wrap_labels_uint8
+from swiftwatcher_tpu_torch.ops.ccl_local import converge_frames, converge_frames_reference
+from swiftwatcher_tpu_torch.ops.ccl_sweep import sweep_chunk, sweep_chunk_reference
+from swiftwatcher_tpu_torch.ops.rank_compact import (
+    RANK_SWEEPS,
+    label_rank_fused,
+    label_rank_fused_reference,
+    rank_seed_sweep,
+    rank_seed_sweep_reference,
+)
+
+
+def _snake(H, W):
+    fg = np.zeros((H, W), bool)
+    for r in range(0, H, 4):
+        fg[r, 1 : W - 1] = True
+        c = W - 2 if (r // 4) % 2 == 0 else 1
+        fg[r : min(r + 4, H), c] = True
+    return fg
+
+
+def _scenes(rng, H=48, W=80):
+    """Blobs, a line snake, empty, speckle, a serpentine and a giant
+    speckle component (the last three deeper than 12 sweeps)."""
+    fg = np.zeros((6, H, W), bool)
+    for cy, cx, r in [(5, 7, 2), (5, 30, 1), (20, 7, 3), (40, 70, 2)]:
+        fg[0, cy - r : cy + r + 1, cx - r : cx + r + 1] = True
+    fg[1, 10, 5:70] = True
+    fg[3] = rng.random((H, W)) > 0.75
+    fg[4] = _snake(H, W)
+    fg[5] = rng.random((H, W)) > 0.62
+    return fg
+
+
+def _converged(fg):
+    """scipy oracle: every fg pixel holds its component's minimum raster
+    index (f32), background H*W."""
+    T, H, W = fg.shape
+    idx = np.arange(H * W, dtype=np.int64).reshape(H, W)
+    lbl = np.full((T, H, W), float(H * W), np.float32)
+    for t in range(T):
+        cc, n = ndimage.label(fg[t], structure=np.ones((3, 3)))
+        if n:
+            mins = np.asarray(ndimage.minimum(idx, cc, index=np.arange(1, n + 1)))
+            lbl[t][fg[t]] = mins[cc[fg[t]] - 1]
+    return lbl
+
+
+def _slow_path_inputs(fg):
+    """The planes the slow path hands K3 and K5: K2's swept labels and K4's
+    rank map of the converged labels."""
+    return {
+        "labels": label_rank_fused_reference(torch.from_numpy(fg))[0].numpy(),
+        "ranks": rank_seed_sweep_reference(torch.from_numpy(_converged(fg))).numpy(),
+    }
+
+
+@pytest.mark.parametrize("plane", ["labels", "ranks"])
+@pytest.mark.parametrize("sweeps", [1, 4])
+def test_k5_plain_vs_pallas_interpret(rng, plane, sweeps):
+    fg = _scenes(rng)
+    P = float(fg.shape[1] * fg.shape[2])
+    x = _slow_path_inputs(fg)[plane]
+    want = jax_sweep_chunk(jnp.asarray(x), jnp.asarray(fg), sweeps, P, interpret=True)
+    got = sweep_chunk_reference(torch.from_numpy(x), torch.from_numpy(fg), sweeps, P)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), x)
+
+
+def test_k4_plain_vs_pallas_interpret(rng):
+    fg = _scenes(rng)
+    P = float(fg.shape[1] * fg.shape[2])
+    lbl = _converged(fg)
+    want = jax_rank_seed_sweep(jnp.asarray(lbl), RANK_SWEEPS, P, interpret=True)
+    got = rank_seed_sweep_reference(torch.from_numpy(lbl))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("plane", ["labels", "ranks"])
+@pytest.mark.parametrize("max_iters", [2, 64])
+def test_k3_plain_vs_pallas_interpret(rng, plane, max_iters):
+    """From the slow path's inputs, both under the iteration cap (2) and
+    to the fixpoint (64), where labels equal the scipy oracle."""
+    fg = _scenes(rng)
+    P = float(fg.shape[1] * fg.shape[2])
+    x = _slow_path_inputs(fg)[plane]
+    want = jax_converge_frames(jnp.asarray(x), jnp.asarray(fg), max_iters, P, interpret=True)
+    got = converge_frames_reference(torch.from_numpy(x), torch.from_numpy(fg), max_iters, P)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if plane == "labels" and max_iters == 64:
+        np.testing.assert_array_equal(got.numpy(), _converged(fg))
+
+
+def test_slow_path_wrappers_take_plain_versions_on_cpu(rng):
+    fg = torch.from_numpy(_scenes(rng))
+    P = float(fg.shape[1] * fg.shape[2])
+    lbl = label_rank_fused_reference(fg)[0]
+    conv = torch.from_numpy(_converged(fg.numpy()))
+    wrappers = (sweep_chunk, converge_frames, rank_seed_sweep)
+    before = [w.launches for w in wrappers]
+    assert torch.equal(sweep_chunk(lbl, fg, 4, P), sweep_chunk_reference(lbl, fg, 4, P))
+    assert torch.equal(converge_frames(lbl, fg, 8, P), converge_frames_reference(lbl, fg, 8, P))
+    assert torch.equal(rank_seed_sweep(conv), rank_seed_sweep_reference(conv))
+    assert [w.launches for w in wrappers] == before
+    meta = torch.zeros((1, 4, 4), device="meta")
+    meta_fg = torch.zeros((1, 4, 4), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        sweep_chunk(meta, meta_fg, 4, 16.0)
+    with pytest.raises(ValueError):
+        converge_frames(meta, meta_fg, 8, 16.0)
+    with pytest.raises(ValueError):
+        rank_seed_sweep(meta)
+
+
+def test_k2_plain_vs_pallas_interpret(rng):
+    fg = _scenes(rng)
+    H, W = fg.shape[1:]
+    jl, jlab = jax_label_rank_fused(jnp.asarray(fg), RANK_SWEEPS, float(H * W), interpret=True)
+    jl, jlab = np.asarray(jl), np.asarray(jlab)
+    jflag = jl[:, 0, 0] < 0
+    jl = np.where(jl < 0, -jl - 1, jl)           # decode the TPU's marker
+    lbl, lab, flag = label_rank_fused_reference(torch.from_numpy(fg))
+    np.testing.assert_array_equal(flag.numpy(), jflag)
+    np.testing.assert_array_equal(lbl.numpy(), jl)
+    np.testing.assert_array_equal(lab.numpy(), jlab)
+    f = flag.numpy().tolist()
+    assert not f[0] and not f[2] and f[1] and f[4] and f[5]
+
+
+def test_k2_wrapper_takes_plain_version_on_cpu(rng):
+    fg = torch.from_numpy(_scenes(rng))
+    before = label_rank_fused.launches
+    got = label_rank_fused(fg)
+    assert label_rank_fused.launches == before
+    for a, b in zip(got, label_rank_fused_reference(fg)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        label_rank_fused(torch.zeros((1, 4, 4), dtype=torch.bool, device="meta"))
+
+
+def test_label_components_vs_jax_fused_path(rng, monkeypatch):
+    """The fast/slow split against the JAX package's TPU path, run in
+    interpret mode, including frames that take the slow path through the
+    K3, K4 and K5 wrappers."""
+    fg = _scenes(rng)
+    jlab, jcnt = jax_label_components(jnp.asarray(fg), use_pallas=True, interpret=True)
+    flagged = int(label_rank_fused_reference(torch.from_numpy(fg))[2].sum())
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args)
+        return wrapper
+
+    for name in ("converge_frames", "rank_seed_sweep", "sweep_chunk"):
+        monkeypatch.setattr(port_ccl, name, counted(name, getattr(port_ccl, name)))
+    before = label_components.slow_path_frames
+    lab, cnt = label_components(torch.from_numpy(fg))
+    assert label_components.slow_path_frames - before == flagged >= 3
+    assert sorted(calls) == ["converge_frames", "rank_seed_sweep", "sweep_chunk"]
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+
+
+@pytest.mark.parametrize("shape,density", [((3, 60, 90), 0.62), ((2, 37, 129), 0.55)])
+def test_label_components_serpentine_vs_jax(rng, shape, density):
+    """Dense speckle: giant serpentine components that need pointer
+    jumping, against the JAX package's off-TPU path."""
+    fg = rng.random(shape) > density
+    fg[0] = _snake(*shape[1:])
+    jlab, jcnt = jax_label_components(jnp.asarray(fg), use_pallas=False)
+    lab, cnt = label_components(torch.from_numpy(fg))
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+
+
+def test_label_components_empty_and_full_frames():
+    fg = np.zeros((3, 20, 30), bool)
+    fg[1] = True
+    fg[2, ::2, ::2] = True   # isolated pixels: 150 components
+    jlab, jcnt = jax_label_components(jnp.asarray(fg), use_pallas=False)
+    lab, cnt = label_components(torch.from_numpy(fg))
+    np.testing.assert_array_equal(lab.numpy(), np.asarray(jlab))
+    np.testing.assert_array_equal(cnt.numpy(), [0, 1, 150])
+
+
+def test_wrap_labels_uint8(rng):
+    labels = rng.integers(0, 700, size=(2, 9, 11)).astype(np.int32)
+    want = np.asarray(jax_wrap(jnp.asarray(labels)))
+    np.testing.assert_array_equal(wrap_labels_uint8(torch.from_numpy(labels)).numpy(), want)

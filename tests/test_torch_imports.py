@@ -1,0 +1,86 @@
+"""The port and chip_smoke.py import without JAX, pandas, cv2, PIL, h5py
+or chex, the scripts that drive the port on the card import the port and
+never the JAX package, and the port's synthetic video is the JAX
+package's, byte for byte."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from swiftwatcher_tpu.io.synthetic import make_video as jax_make_video
+from swiftwatcher_tpu_torch.io.synthetic import make_video
+
+ROOT = Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "pandas", "cv2", "PIL", "h5py", "chex")
+
+PORT_MODULES = [
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in sorted((ROOT / "swiftwatcher_tpu_torch").rglob("*.py"))
+]
+
+_PROBE = """
+import importlib, importlib.abc, sys
+BLOCKED = set({blocked!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+for m in {modules!r}:
+    importlib.import_module(m)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok", len({modules!r}))
+"""
+
+
+def test_port_and_chip_smoke_import_without_blocked_packages():
+    modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ["chip_smoke"]
+    code = _PROBE.format(blocked=BLOCKED, modules=modules)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == f"ok {len(modules)}"
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile.py"])
+def test_card_scripts_import_the_port_only(script):
+    """Shared JAX-free modules reach them through the port's re-exports."""
+    names = []
+    for node in ast.walk(ast.parse((ROOT / script).read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "swiftwatcher_tpu" not in tops and not tops & set(BLOCKED), sorted(tops)
+    assert "swiftwatcher_tpu_torch" in tops
+
+
+def test_no_jax_in_port_sources():
+    for p in (ROOT / "swiftwatcher_tpu_torch").rglob("*.py"):
+        text = p.read_text()
+        assert "import jax" not in text and "from jax" not in text, p
+
+
+@pytest.mark.parametrize("kw", [
+    dict(seed=0, n_frames=63, n_entering=2, n_crossing=1, n_vanishing=1),
+    dict(seed=1923779129, n_frames=45, n_entering=0, n_crossing=0, n_vanishing=2,
+         dot=5, brightness_drift=0.15),
+    dict(seed=4, n_frames=30, H=180, W=260, n_entering=3, noise=5, amp=90),
+])
+def test_make_video_identical_to_jax_package(kw):
+    ours, theirs = make_video(**kw), jax_make_video(**kw)
+    assert ours.frames.dtype == theirs.frames.dtype == np.uint8
+    np.testing.assert_array_equal(ours.frames, theirs.frames)
+    assert ours.corners == theirs.corners and ours.fps == theirs.fps
+    assert (ours.n_entering, ours.n_crossing, ours.n_vanishing) == (
+        theirs.n_entering, theirs.n_crossing, theirs.n_vanishing)

@@ -1,0 +1,89 @@
+"""Port vs JAX package: batched warm-basis IALM RPCA.
+
+Tolerances:
+  * rpca_dtype="float64" (JAX under x64): iteration counts equal, uint8
+    motion bit-equal;
+  * the shipped f32 solver with bf16 A/E/Y: iteration counts within +-1 and
+    uint8 motion within +-3 (PARITY deviations 3 and 8), with >= 99.9% of
+    pixels within +-1 — the two frameworks sum in different orders.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from swiftwatcher_tpu.config import DEFAULT_CONFIG
+from swiftwatcher_tpu.ops.rpca import rpca_motion_window_batched as jax_rpca
+from swiftwatcher_tpu_torch.ops.rpca import (
+    ialm_gates_and_kwargs,
+    rpca_motion_window_batched,
+)
+
+from oracles import make_synthetic_window
+
+
+def _windows(rng, B=2, T=21, H=24, W=32):
+    return np.stack([make_synthetic_window(rng, T=T, H=H, W=W) for _ in range(B)])
+
+
+def test_rpca_f64_iters_equal_motion_bit_equal(rng):
+    cfg = dataclasses.replace(DEFAULT_CONFIG, rpca_dtype="float64")
+    wins = _windows(rng)
+    with jax.enable_x64(True):
+        jm, ji = jax_rpca(wins, cfg)
+        jm, ji = np.asarray(jm), np.asarray(ji)
+    m, i = rpca_motion_window_batched(torch.from_numpy(wins), cfg)
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_array_equal(m.numpy(), jm)
+
+
+def _assert_within_envelope(m, i, jm, ji):
+    jm = np.asarray(jm).astype(int)
+    assert np.abs(i.numpy().astype(int) - np.asarray(ji)).max() <= 1
+    diff = np.abs(m.numpy().astype(int) - jm)
+    assert diff.max() <= 3
+    assert (diff <= 1).mean() >= 0.999
+    assert (m.numpy() > 50).sum() > 0          # the dark dots show as motion
+
+
+def test_rpca_shipped_f32_bf16_within_envelope(rng):
+    wins = _windows(rng, B=3)
+    jm, ji = jax_rpca(wins, DEFAULT_CONFIG)
+    m, i = rpca_motion_window_batched(torch.from_numpy(wins), DEFAULT_CONFIG)
+    _assert_within_envelope(m, i, jm, ji)
+
+
+def test_rpca_fixed_iters_at_the_dynamic_count(rng):
+    """The fixed-trip branch equals the dynamic loop bit for bit when every
+    window's dynamic count is the fixed count, as in the JAX package."""
+    wins = _windows(rng, B=3)
+    m0, i0 = rpca_motion_window_batched(torch.from_numpy(wins), DEFAULT_CONFIG)
+    assert len(set(i0.tolist())) == 1
+    cfg = dataclasses.replace(DEFAULT_CONFIG, rpca_fixed_iters=int(i0[0]))
+    m, i = rpca_motion_window_batched(torch.from_numpy(wins), cfg)
+    assert torch.equal(i, i0) and torch.equal(m, m0)
+    jm, ji = jax_rpca(wins, cfg)
+    _assert_within_envelope(m, i, jm, ji)
+
+
+def test_rpca_all_zero_window(rng):
+    wins = _windows(rng, B=2)
+    wins[1] = 0
+    jm, ji = jax_rpca(wins, DEFAULT_CONFIG)
+    m, i = rpca_motion_window_batched(torch.from_numpy(wins), DEFAULT_CONFIG)
+    assert int(i[1]) == int(ji[1])
+    assert not m[1].any() and not np.asarray(jm)[1].any()
+
+
+def test_rpca_gates():
+    kw = ialm_gates_and_kwargs(DEFAULT_CONFIG, torch.float32)
+    assert kw["x_store_dtype"] == "uint8"
+    assert kw["store_y_dtype"] == kw["store_ae_dtype"] == "bfloat16"
+    assert ialm_gates_and_kwargs(DEFAULT_CONFIG, torch.float64)["store_y_dtype"] is None
+    with pytest.raises(NotImplementedError, match="K6"):
+        ialm_gates_and_kwargs(
+            dataclasses.replace(DEFAULT_CONFIG, rpca_warm_basis=False), torch.float32
+        )
