@@ -21,7 +21,18 @@ path (`run_video`) end to end:
   5. run_video on the small synthetic scene on the card and on the CPU:
      equal events, 2 predicted and 1 rejected;
   6. run_video over 1008 frames of the 1080p scene (216 x 432 crop):
-     events > 0, and each kernel launched on that run.
+     events > 0, and each of K1-K5 launched on that run;
+  7. K6 (fused IALM front) vs its plain version at (16, 21, 93312) on the
+     state of a real cold-start iteration of one batch of that scene (u8
+     X, bf16 A and Y, as the solver holds them), the same state widened to
+     f32, and ragged shapes: E and M bit-equal, G within 1e-4 max|G|;
+  8. cold-start RPCA on that batch on the card with K6 vs with the plain
+     front: iterations within 1, motion within 2 u8; the warm solve beside;
+  9. run_video over the 1008 frames with rpca_warm_basis=False: every
+     kernel K1-K6 launched, and the predicted and rejected counts of 6;
+ 10. the CLI (`swiftwatcher_tpu_torch.__main__.main`) on the card with
+     rpca_warm_basis=False on the small scene as a .npy clip: 2 predicted /
+     1 rejected, and six CSVs byte-equal to run_video on the CPU.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -29,20 +40,34 @@ blob, deeper than the fast path's sweeps, so those frames take the CCL
 slow path and its kernels run on the main path.
 
 Prints kernel and end-to-end times on the way, then a {"kernels": [...]}
-line, the card line again, and last {"ok": true, "device": {...}}.  Exits
+line, the card line again, and last {"ok": true, "device": {...}}.  Each
+kernel's `bound_ms` is the larger of the bytes it must move (each input
+read once, each output written once) over the card's memory rate and the
+operations it does on this run's inputs over the f32 rate (`bound`).  No
+single PyTorch call computes any of K1-K6, so `library_ms` is null.  Exits
 nonzero, printing no result, on any failure or when no CUDA device exists.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
-TOL = 0  # every comparison below is bit-equal
+TOL = 0  # every comparison below is bit-equal, except K6's Gram
+G_RTOL = 1e-4  # K6's G vs plain, relative to max|G|: another summation order
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 non-tensor ops/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -166,6 +191,43 @@ def f32_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, "bytes" or "operations") for moving n_bytes through HBM
+    and doing n_ops f32 operations on one H100."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def k1_bound(torch, motion, cfg):
+    """K1 moves the u8 frames in and out once; its arithmetic is the
+    bilateral (29 taps of ~8 operations) on the tile +-2 and the two 3 x 3
+    passes of the opening, on the 32 x 64 tiles whose staged input (halo
+    of radius + 2) holds a pixel above the threshold; the rest skip."""
+    import torch.nn.functional as F
+
+    N, H, W = motion.shape
+    halo = cfg.bilateral_d // 2 + 2
+    hot = F.max_pool2d((motion > cfg.motion_threshold).float()[:, None],
+                       2 * halo + 1, stride=1, padding=halo)[:, 0]
+    ph, pw = -H % 32, -W % 64
+    hot = F.pad(hot, (0, pw, 0, ph)).reshape(N, (H + ph) // 32, 32, (W + pw) // 64, 64)
+    tiles = int((hot.amax(dim=(2, 4)) > 0).sum())
+    taps = 29
+    per_tile = (36 * 68) * taps * 8 + (34 * 66) * 8 + (32 * 64) * 8
+    return bound(2 * motion.numel(), tiles * per_tile), tiles
+
+
+def k6_bytes_ops(X, A, Y):
+    """K6 reads X, A, Y and inv_mu once and writes E, M (f32) and G; it
+    does ~10 operations an element and the Gram's 2 T^2 P per window."""
+    B, T, P = X.shape
+    n = X.numel()
+    n_bytes = (n * (X.element_size() + A.element_size() + Y.element_size() + 8)
+               + B * T * T * 4 + B * 4)
+    return n_bytes, 10 * n + 2 * B * T * T * P
+
+
 def run() -> None:
     import numpy as np
     import torch
@@ -173,10 +235,12 @@ def run() -> None:
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device (torch.cuda.is_available() is False)")
     from swiftwatcher_tpu_torch import build
+    from swiftwatcher_tpu_torch import ui
+    from swiftwatcher_tpu_torch.__main__ import main as cli_main
     from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG
     from swiftwatcher_tpu_torch.device import pin_numerics, require_cuda
     from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
-    from swiftwatcher_tpu_torch.io.source import ArraySource, LoopingArraySource
+    from swiftwatcher_tpu_torch.io.source import ArraySource, LoopingArraySource, open_source
     from swiftwatcher_tpu_torch.io.synthetic import make_video
     from swiftwatcher_tpu_torch.ops.ccl import label_components
     from swiftwatcher_tpu_torch.ops.ccl_local import converge_frames, converge_frames_reference
@@ -193,7 +257,13 @@ def run() -> None:
         rank_seed_sweep,
         rank_seed_sweep_reference,
     )
-    from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched
+    from swiftwatcher_tpu_torch.ops import rpca as rpca_mod
+    from swiftwatcher_tpu_torch.ops.ialm_front import ialm_front, ialm_front_reference
+    from swiftwatcher_tpu_torch.ops.rpca import (
+        ialm_gates_and_kwargs,
+        ialm_rpca_batched,
+        rpca_motion_window_batched,
+    )
     from swiftwatcher_tpu_torch.pipeline.runner import run_video
 
     cfg = DEFAULT_CONFIG
@@ -369,6 +439,149 @@ def run() -> None:
     check(len(r6.events) > 0, "1080p run found no events")
     check(all(n > 0 for n in launches.values()), "a kernel was not launched on the main path")
 
+    # 7. K6 on the state of a real cold-start iteration of one batch
+    cold = dataclasses.replace(cfg, rpca_warm_basis=False)
+    X = gray_dev.reshape(B, T, H * W).to(torch.float32)
+    kw = ialm_gates_and_kwargs(cold, torch.float32, X.device)
+    check(kw["fused_front"] and not kw["warm_basis"], "the cold gate did not pick K6 on the card")
+    calls = []
+    plain_front = rpca_mod.ialm_front_reference
+
+    def recording_front(*args):
+        calls.append(args)
+        return plain_front(*args)
+
+    rpca_mod.ialm_front_reference = recording_front
+    try:
+        ialm_rpca_batched(X, **dict(kw, fused_front=False, fixed_iters=4))
+    finally:
+        rpca_mod.ialm_front_reference = plain_front
+    Xs, As, Ys, inv_mu, lmbda = calls[-1]       # after 3 plain iterations
+    print(f"phase 7 K6 input: X {tuple(Xs.shape)} {Xs.dtype}, A/Y {As.dtype}, "
+          f"inv_mu {inv_mu.min().item():.4g}..{inv_mu.max().item():.4g}", flush=True)
+
+    def k6_compare(args, what):
+        e, m, g = ialm_front(*args)
+        e0, m0, g0 = ialm_front_reference(*args)
+        torch.cuda.synchronize()
+        g_err = f32_err(g, g0)
+        g_max = float(g0.abs().max())
+        ok = torch.equal(e, e0) and torch.equal(m, m0) and g_err <= G_RTOL * g_max
+        check(ok, f"K6 disagrees with its plain version on {what}: E equal "
+                  f"{torch.equal(e, e0)}, M equal {torch.equal(m, m0)}, "
+                  f"max|dG| {g_err} vs max|G| {g_max}")
+        return f32_err(e, e0), f32_err(m, m0), g_err, g_max
+
+    main_args = (Xs, As, Ys, inv_mu, lmbda)
+    e_err, m_err, k6_err, g_max = k6_compare(main_args, "the main path's state")
+    print(f"phase 7 K6 vs plain at {tuple(Xs.shape)}: E max |diff| {e_err}, M max |diff| "
+          f"{m_err}, G max |diff| {k6_err} (max|G| {g_max:.6g}, limit {G_RTOL} max|G|)",
+          flush=True)
+    _, m0, g0 = ialm_front_reference(*main_args)
+    g64 = m0.double() @ m0.double().transpose(-1, -2)
+    print(f"phase 7 G max |diff| from the f64 Gram of the same M: K6 "
+          f"{f32_err(ialm_front(*main_args)[2], g64)}, plain {f32_err(g0, g64)}", flush=True)
+    f32_args = (Xs.float(), As.float(), Ys.float(), inv_mu, lmbda)
+    k6_compare(f32_args, "the f32 state")
+    for shape in ((1, 21, 1), (3, 21, 1000), (2, 21, 4099), (1, 21, 93312), (4, 7, 777)):
+        for xd, sd in ((torch.uint8, torch.bfloat16), (torch.float32, torch.float32)):
+            Xr = torch.from_numpy(rng.integers(0, 256, size=shape)).to(dev, xd)
+            Ar = (torch.from_numpy(rng.standard_normal(shape) * 60)).to(dev, sd)
+            Yr = (torch.from_numpy(rng.standard_normal(shape) * 1e-3)).to(dev, sd)
+            im = torch.from_numpy(rng.uniform(0.5, 200.0, shape[0])).to(dev, torch.float32)
+            k6_compare((Xr, Ar, Yr, im, 0.01), f"{shape} {xd} {sd}")
+    print("phase 7 K6 vs plain on 10 ragged shapes/dtypes: E, M bit-equal, G within "
+          "tolerance", flush=True)
+    k6_ms, k6_plain_ms = alternate_ms(
+        torch, lambda: ialm_front_reference(*main_args), lambda: ialm_front(*main_args)
+    )
+    k6_bound = bound(*k6_bytes_ops(Xs, As, Ys))
+    print(f"phase 7 K6 time at {tuple(Xs.shape)}: kernel {k6_ms:.4f} ms, plain "
+          f"{k6_plain_ms:.4f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]}) [{card}]",
+          flush=True)
+
+    # 8. cold-start RPCA on the batch: with K6, with the plain front, and warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_k6, it_k6 = rpca_motion_window_batched(gray_dev, cold)
+    torch.cuda.synchronize()
+    t_k6 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_pl, it_pl = rpca_motion_window_batched(
+        gray_dev, dataclasses.replace(cold, use_pallas_rpca=False))
+    torch.cuda.synchronize()
+    t_pl = time.perf_counter() - t0
+    it_diff = int((it_k6 - it_pl).abs().max())
+    mot_diff = int((m_k6.int() - m_pl.int()).abs().max())
+    warm_cold = int((m_k6.reshape(B * T, H, W).int() - motion.int()).abs().max())
+    print(f"phase 8 cold RPCA on one batch: K6 iters {it_k6.min().item()}..{it_k6.max().item()} "
+          f"in {t_k6 * 1e3:.1f} ms, plain front iters {it_pl.min().item()}..{it_pl.max().item()} "
+          f"in {t_pl * 1e3:.1f} ms; iters max |diff| {it_diff}, motion max |diff| {mot_diff}; "
+          f"warm iters {iters.min().item()}..{iters.max().item()}, cold vs warm motion "
+          f"max |diff| {warm_cold} [{card}]", flush=True)
+    check(it_diff <= 1, "cold RPCA: K6 and the plain front differ by more than 1 iteration")
+    check(mot_diff <= 2, "cold RPCA: K6 and the plain front differ by more than 2 u8")
+
+    # 9. the cold-start main path at 1080p, with the launch counters read around it
+    wrappers["ialm_front"] = ialm_front
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r9 = run_video(LoopingArraySource(bench.frames, total=n_frames, fps=bench.fps),
+                   bench.corners, cold, dev)
+    torch.cuda.synchronize()
+    secs9 = time.perf_counter() - t0
+    cold_launches = {name: w.launches for name, w in wrappers.items()}
+    print(f"phase 9 run_video 1080p cold start: {r9.frames_processed} frames in {secs9:.2f} s "
+          f"= {r9.frames_processed / secs9:.1f} frames/s (warm {r6.frames_processed / secs:.1f}) "
+          f"[{card}], {len(r9.events)} events ({r9.total_predicted} predicted / "
+          f"{r9.total_rejected} rejected), IALM iters {min(r9.ialm_iters)}.."
+          f"{max(r9.ialm_iters)}, launches {cold_launches}", flush=True)
+    check(r9.frames_processed == n_frames, "cold 1080p run processed the wrong frame count")
+    check(all(n > 0 for n in cold_launches.values()),
+          "a kernel was not launched on the cold-start path")
+    check((r9.total_predicted, r9.total_rejected) == (r6.total_predicted, r6.total_rejected),
+          "cold 1080p run: predicted/rejected differ from the warm run")
+
+    # 10. the CLI on the card vs run_video on the CPU, cold start
+    with tempfile.TemporaryDirectory() as td:
+        clip = Path(td) / "clip.npy"
+        np.save(clip, small.frames)
+        ui.save_corners_to_file(clip, small.corners)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["--filepaths", str(clip), "--set", "rpca_warm_basis=false"])
+        text = out.getvalue()
+        print("phase 10 CLI: " + " | ".join(
+            ln.strip() for ln in text.replace("\r", "\n").splitlines() if ln.strip()),
+            flush=True)
+        check(rc == 0, f"CLI exited {rc}")
+        check(re.search(r"clip: 2 predicted / 1 rejected swifts", text) is not None,
+              "CLI: want 2 predicted / 1 rejected")
+        cpu_dir = Path(td) / "cpu"
+        run_video(open_source(clip), small.corners, cold, torch.device("cpu"),
+                  export_dir=cpu_dir)
+        names = sorted(p.name for p in cpu_dir.glob("*.csv"))
+        got = sorted(p.name for p in (Path(td) / "clip").glob("*.csv"))
+        check(len(names) == 6 and got == names, f"CLI CSVs {got} vs CPU {names}")
+        for n in names:
+            check((cpu_dir / n).read_bytes() == (Path(td) / "clip" / n).read_bytes(),
+                  f"CLI CSV {n} differs from the CPU run's")
+        print(f"phase 10 CLI on the card: six CSVs byte-equal to run_video on the CPU "
+              f"({', '.join(names)})", flush=True)
+
+    # every kernel's bound at the inputs timed above
+    hw = H * W
+    bounds = {
+        "fused_motion_filter": k1_bound(torch, motion, cfg)[0],
+        "label_rank_fused": bound(fg_main.numel() * 9 + fg_main.shape[0],
+                                  fg_main.numel() * (25 * 4 + 2)),
+        "sweep_chunk": bound(k5_in.shape[0] * hw * 9, k5_in.shape[0] * hw * 4 * 8),
+        "converge_frames": bound(k3_in.shape[0] * hw * 9, k3_in.shape[0] * hw * 12),
+        "rank_seed_sweep": bound(k4_in.shape[0] * hw * 8, k4_in.shape[0] * hw * (12 * 4 + 2)),
+        "ialm_front": k6_bound,
+    }
     kernels = [
         {"name": "fused_motion_filter", "route": "cuda",
          "source": "swiftwatcher_tpu_torch/csrc/fused_motion.cu",
@@ -392,6 +605,15 @@ def run() -> None:
             "replaces": f"swiftwatcher_tpu/ops/pallas/{replaces}",
             "launches": launches[name], "max_abs_err": slow_err[name],
             "ms": slow_ms[name][0], "plain_ms": slow_ms[name][1]})
+    kernels.append({
+        "name": "ialm_front", "route": "cuda",
+        "source": "swiftwatcher_tpu_torch/csrc/ialm_front.cu",
+        "replaces": "swiftwatcher_tpu/ops/pallas/ialm_front.py:87",
+        "launches": cold_launches["ialm_front"], "max_abs_err": k6_err,
+        "ms": k6_ms, "plain_ms": k6_plain_ms})
+    for k in kernels:
+        k["bound_ms"], k["bound_by"] = bounds[k["name"]]
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

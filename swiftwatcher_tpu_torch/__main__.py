@@ -1,0 +1,87 @@
+"""Console entry point of the port.
+
+    python -m swiftwatcher_tpu_torch --filepaths clip.npy [--set field=value ...] [--device cpu]
+
+Counterpart of swiftwatcher_tpu/__main__.py (reference __main__.py:13-53):
+per video, open a frame source by suffix, read the chimney corners from
+<video dir>/<stem>/attributes.json, count on the device, and write the six
+PREDICTED/REJECTED CSVs next to the video (under --debug, into a versioned
+run directory).  Runs on the card unless --device says otherwise.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from . import ui
+from .config import ACCURACY_PACK_OVERRIDES, config_with_overrides
+from .device import require_cuda
+from .io.source import open_source
+from .pipeline.runner import run_video
+
+
+def main(argv=None) -> int:
+    args = ui.parse_args(argv)
+    overrides = list(args.set)
+    if args.accuracy_pack:
+        # preset first: an explicit --set of the same field wins
+        overrides = list(ACCURACY_PACK_OVERRIDES) + overrides
+    cfg = config_with_overrides(overrides)
+    if args.classify:
+        raise NotImplementedError("--classify is not ported yet (ROADMAP.md section 1 item 4)")
+    if args.parallel_videos > 1:
+        raise NotImplementedError(
+            "--parallel-videos > 1 is not ported yet (ROADMAP.md section 1 item 3)"
+        )
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        require_cuda()
+    filepaths = args.filepaths if args.filepaths else ui.select_filepaths()
+
+    jobs, out_dirs = [], []
+    for src_path in filepaths:
+        source = open_source(src_path, start=args.start, end=args.end if args.end > 0 else 0)
+        output_dir = src_path.parent / src_path.stem
+        attrs = output_dir / "attributes.json"
+        if attrs.is_file():
+            corners = ui.get_corners_from_file(attrs)
+        else:
+            corners = ui.select_chimney_corners(src_path)
+        jobs.append((source, corners))
+        out_dirs.append(output_dir)
+
+    results = []
+    try:
+        for i, (source, corners) in enumerate(jobs):
+            ui.start_status(filepaths[i].name)
+            results.append(run_video(
+                source, corners, cfg, device,
+                export_dir=out_dirs[i],
+                debug=args.debug,
+                status_cb=ui.frames_processed_status,
+                # the sibling output directory, as the JAX package's CLI does
+                export_segments_dir=(out_dirs[i] / "segments") if args.export else None,
+                tracker_impl=args.tracker,
+                profile_dir=(out_dirs[i] / "profile") if args.profile else None,
+                mesh=args.mesh,
+            ))
+    finally:
+        for source, _ in jobs:
+            source.close()
+
+    for src_path, result in zip(filepaths, results):
+        if result.classified is None:
+            print("[!] No events detected in video '{}'.".format(src_path.stem))
+        else:
+            print(
+                "[-]     {}: {} predicted / {} rejected swifts.".format(
+                    src_path.stem, result.total_predicted, result.total_rejected
+                )
+            )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -62,6 +63,12 @@ _SIGNATURES = {
     "ccl_sweep": {
         "swt_sweep_chunk": [
             _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
+        ],
+    },
+    "ialm_front": {
+        "swt_ialm_front": [
+            _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+            _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
         ],
     },
 }
@@ -118,10 +125,12 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> float:
-    """Build and load every kernel; returns the seconds it took."""
+    """Build and load every kernel, one nvcc per source, all started
+    together; returns the seconds it took."""
     t0 = time.perf_counter()
-    for name in KERNEL_SOURCES:
-        load_library(name)
+    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
+        for future in [pool.submit(load_library, name) for name in KERNEL_SOURCES]:
+            future.result()
     return time.perf_counter() - t0
 
 

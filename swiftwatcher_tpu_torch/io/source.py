@@ -1,12 +1,15 @@
-"""In-memory frame sources with the reference's I/O semantics, pandas-free.
+"""Frame sources with the reference's I/O semantics, pandas-free.
 
-Counterparts of swiftwatcher_tpu/io/readers.py (FrameSource, ArraySource)
-and io/synthetic.py (LoopingArraySource):
+Counterparts of swiftwatcher_tpu/io/readers.py (FrameSource, ArraySource,
+the cv2 backend of VideoFileSource, open_source) and io/synthetic.py
+(LoopingArraySource):
 
   * the bounds check is INCLUSIVE of end_frame, so the frame at index
     end_frame is requested; a failed read substitutes the last good frame
     and bumps read_errors (one duplicated tail frame);
-  * out-of-range requests yield a zero "null" frame with frame number -1.
+  * out-of-range requests yield a zero "null" frame with frame number -1;
+  * a container is read strictly in sequence (retrieve, then grab) and
+    --start is ignored for it (io_video.py:146,155-165).
 
 Stamps are frame numbers (-1 for null frames): the port recomputes
 timestamps as frame_number / fps only where it writes them (CSV export).
@@ -14,6 +17,7 @@ timestamps as frame_number / fps only where it writes them (CSV export).
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -32,9 +36,13 @@ class FrameSource:
         self.last_read_frame: Optional[np.ndarray] = None
         self.frames_read = 0
         self.read_errors = 0
+        self.filepath: Optional[Path] = None
 
     def read_frame(self, frame_number: int, increment: bool = True):
         raise NotImplementedError
+
+    def close(self) -> None:
+        """Release what the source holds open (nothing, in memory)."""
 
     def get_frame(self) -> Tuple[np.ndarray, int, int]:
         """(frame, frame_number, stamp) at the cursor, with error fallback."""
@@ -115,3 +123,61 @@ class LoopingArraySource(ArraySource):
         if increment:
             self.next_frame_number += 1
         return frame
+
+
+# ROADMAP.md item of the readers the port does not have yet.
+_READERS_ITEM = "ROADMAP.md section 1 item 3, readers"
+
+
+class VideoFileSource(FrameSource):
+    """A container read through cv2.VideoCapture, in sequence: the cv2
+    backend of swiftwatcher_tpu/io/readers.py:VideoFileSource.  A failed
+    decode yields None, which get_frame replaces by the last good frame."""
+
+    def __init__(self, filepath, end: int = 0, backend: str = "cv2"):
+        super().__init__()
+        if backend != "cv2":
+            raise NotImplementedError(
+                f"the {backend!r} decode backend is not ported yet ({_READERS_ITEM}); "
+                "the port reads containers through cv2"
+            )
+        import cv2
+
+        self.filepath = Path(filepath)
+        self._cap = cv2.VideoCapture(str(filepath))
+        if not self._cap.isOpened():
+            raise RuntimeError(
+                f"{filepath}: cv2.VideoCapture could not open the file "
+                "(missing, unreadable, or unsupported container)"
+            )
+        self.fps = float(self._cap.get(cv2.CAP_PROP_FPS))
+        container_frames = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        self.end_frame = end if end > 0 else container_frames
+        self._cap.grab()  # prime, so that retrieve() returns frame 0
+        self.next_frame_number = self.start_frame
+        self.total_frames = self.end_frame - self.start_frame
+
+    def read_frame(self, frame_number: int, increment: bool = True):
+        ok, frame = self._cap.retrieve()
+        if not ok:
+            frame = None
+        if increment:
+            self._cap.grab()
+            self.next_frame_number += 1
+        return frame
+
+    def close(self) -> None:
+        self._cap.release()
+
+
+def open_source(filepath, start: int = 0, end: int = 0) -> FrameSource:
+    """Pick a source by suffix (__main__.py:23-26): .npy clips in memory,
+    anything else a container through cv2."""
+    p = Path(filepath)
+    if p.suffix in (".h5", ".hdf5"):
+        raise NotImplementedError(f"HDF5 sources are not ported yet ({_READERS_ITEM})")
+    if p.suffix == ".npy":
+        src = ArraySource(np.load(p), fps=30.0, start=start, end=end)
+        src.filepath = p
+        return src
+    return VideoFileSource(p, end)

@@ -1,11 +1,16 @@
 """RPCA background subtraction by inexact augmented Lagrange multipliers.
 
-Counterpart of swiftwatcher_tpu/ops/rpca.py (`ialm_rpca_batched` with the
-warm basis, and the helpers on its path).  The SVD of each tall-skinny
+Counterpart of swiftwatcher_tpu/ops/rpca.py (`ialm_rpca_batched`, warm
+and cold start, and the helpers on its path).  The SVD of each tall-skinny
 iterate (T = 21 frames x P pixels) is taken through its row space: a T x T
 eigendecomposition refined by Newton steps, then a one-sided polish round
 that restores relative accuracy on the small singular values.  The products
 are `torch.matmul`, the 21 x 21 work `torch.linalg.eigh`/`qr`.
+
+The warm-basis solver (the shipped default) carries the eigenbasis across
+iterations.  The cold-start solver forms each iterate's T x T Gram and takes
+its basis from a fresh eigh; on the card that Gram comes from the fused
+front kernel K6 (ops/ialm_front.py) together with E and M.
 
 Quirks of the reference kept on purpose:
   * the svp length quirk: every iteration keeps all T singular values, so
@@ -25,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import DEFAULT_CONFIG, PipelineConfig
+from .ialm_front import front_chain, ialm_front, ialm_front_reference
 
 _DTYPES = {
     "float32": torch.float32,
@@ -66,15 +72,23 @@ def ialm_rpca_batched(
     max_iter: int = 100,
     rho: float = 1.5,
     mu_cap: float = 1e7,
+    fused_front: bool = False,
+    warm_basis: bool = False,
     x_store_dtype: Optional[str] = None,
     store_y_dtype: Optional[str] = None,
     store_ae_dtype: Optional[str] = None,
     fixed_iters: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Batched warm-basis IALM over row-convention X (B, T, P).
+    """Batched IALM over row-convention X (B, T, P).
 
     Converged windows are frozen while the rest finish.  Returns (A, E,
     iters): A and E are (B, T, P) in X's dtype, iters is (B,) int32.
+
+    warm_basis carries the row-space eigenbasis across iterations (seeded
+    from one Gram before the loop); without it every iteration forms the
+    Gram of its iterate M and starts the polish from that Gram's eigh.
+    fused_front (cold start only) takes E, M and that Gram from K6, which
+    launches on a CUDA f32 solve; otherwise they come from the plain chain.
 
     x_store_dtype holds X between uses ('uint8' is lossless for uint8-origin
     windows); store_y_dtype / store_ae_dtype round the loop-carried Y and
@@ -95,23 +109,24 @@ def ialm_rpca_batched(
     mu0 = 1.25 / frob
     Xs = X.to(sd_x) if sd_x is not None else X
 
+    front = ialm_front if fused_front else ialm_front_reference
+
     def update(A_s, Y_s, mu, V):
-        A = A_s.to(dtype)
         Y = Y_s.to(dtype)
         Xf = Xs.to(dtype)
-        inv_mu = (1.0 / mu)[..., None, None]
-        Eraw = Xf - A + inv_mu * Y
-        Eupd = torch.clamp(Eraw - lmbda * inv_mu, min=0.0) + torch.clamp(
-            Eraw + lmbda * inv_mu, max=0.0
-        )
-        M = Xf - Eupd + inv_mu * Y
-        # Row-space SVD with the carried basis V0 and one polish round:
+        if warm_basis:
+            Eupd, M = front_chain(Xs, A_s, Y_s, 1.0 / mu, lmbda)
+            V0 = V      # last iteration's basis; the polish re-converges it
+        else:
+            Eupd, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
+            _, V0 = _refined_eigh(G)
+        # Row-space SVD from the basis V0 and one polish round:
         # A = V diag(r) V^T M = [(V diag r) V1^T] (V0^T M) = Q W1.
-        W1 = _t(V) @ M
+        W1 = _t(V0) @ M
         C = W1 @ _t(W1)
         d, V1 = _refined_eigh(C)
         S = torch.sqrt(torch.clamp(d, min=0.0))
-        Vn = V @ V1
+        Vn = V0 @ V1
         floor = eps * S.amax(dim=-1, keepdim=True) + tiny
         ratio = (S - (1.0 / mu)[..., None]) / torch.maximum(S, floor)
         Q = (Vn * ratio[..., None, :]) @ _t(V1)
@@ -125,9 +140,12 @@ def ialm_rpca_batched(
         return a.to(sd) if sd is not None else a
 
     B, T = X.shape[0], X.shape[1]
-    # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
-    M0 = X + (1.0 / mu0)[..., None, None] * Y0
-    _, V = _refined_eigh(M0 @ _t(M0))
+    if warm_basis:
+        # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
+        M0 = X + (1.0 / mu0)[..., None, None] * Y0
+        _, V = _refined_eigh(M0 @ _t(M0))
+    else:
+        V = torch.eye(T, dtype=dtype, device=X.device).expand(B, T, T)
     A = E = torch.zeros_like(X, dtype=sd_ae if sd_ae is not None else dtype)
     Y = store(Y0, sd_y)
     mu = mu0
@@ -157,16 +175,24 @@ def ialm_rpca_batched(
     return A.to(dtype), E.to(dtype), itr
 
 
-def ialm_gates_and_kwargs(cfg: PipelineConfig, dtype: torch.dtype) -> dict:
-    """ialm_rpca_batched keyword arguments from a PipelineConfig.
+def ialm_gates_and_kwargs(
+    cfg: PipelineConfig, dtype: torch.dtype, device: torch.device
+) -> dict:
+    """ialm_rpca_batched keyword arguments from a PipelineConfig, for a
+    solve in `dtype` on `device`.
 
-    The port carries only the warm-basis solver (the shipped default); the
-    cold-start solver and its fused front kernel are not ported yet."""
-    if not cfg.rpca_warm_basis:
-        raise NotImplementedError(
-            "rpca_warm_basis=False needs the cold-start solver and kernel K6 "
-            "(ROADMAP.md, TPU kernels to port: K6)"
-        )
+    The JAX package's gate (swiftwatcher_tpu/ops/rpca.py:472-508) with the
+    card in the TPU's place: the fused front K6 runs on the cold-start
+    solver, on a CUDA device, in f32.  Unlike the Pallas kernel, K6 reads X
+    as u8, so X stays u8 on the fused path too (a lossless hold: the same
+    values either way)."""
+    warm = cfg.rpca_warm_basis
+    fused = (
+        cfg.use_pallas_rpca
+        and not warm
+        and torch.device(device).type == "cuda"
+        and dtype == torch.float32
+    )
     state_sd = "bfloat16" if (cfg.rpca_state_bf16 and dtype == torch.float32) else None
     return dict(
         lmbda=cfg.rpca_lambda,
@@ -174,6 +200,8 @@ def ialm_gates_and_kwargs(cfg: PipelineConfig, dtype: torch.dtype) -> dict:
         max_iter=cfg.rpca_max_iter,
         rho=cfg.rpca_rho,
         mu_cap=cfg.rpca_mu_cap,
+        fused_front=fused,
+        warm_basis=warm,
         x_store_dtype="uint8" if cfg.rpca_store_x_u8 else None,
         store_y_dtype=state_sd,
         store_ae_dtype=state_sd,
@@ -194,5 +222,5 @@ def rpca_motion_window_batched(
     dtype = _DTYPES[cfg.rpca_dtype]
     P = H * W
     X = gray_windows.reshape(B, T, P).to(dtype)
-    _, E, iters = ialm_rpca_batched(X, **ialm_gates_and_kwargs(cfg, dtype))
+    _, E, iters = ialm_rpca_batched(X, **ialm_gates_and_kwargs(cfg, dtype, X.device))
     return motion_from_E(E, P).reshape(B, T, H, W), iters

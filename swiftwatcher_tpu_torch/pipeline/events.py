@@ -23,9 +23,8 @@ from typing import Sequence
 
 import numpy as np
 
-from swiftwatcher_tpu.pipeline.tracking import Event
-
 from ..config import DEFAULT_CONFIG, PipelineConfig
+from .tracking import Event
 
 EPSILON = sys.float_info.epsilon
 
@@ -109,8 +108,7 @@ def labels_dataframe(classified: ClassifiedEvents, fps: float):
     (timestamp, framenumber), columns angle, label, events."""
     import pandas as pd
 
-    from swiftwatcher_tpu.io.export import frame_timestamp
-    from swiftwatcher_tpu.io.readers import NULL_TIMESTAMP
+    from ..io.export import NULL_TIMESTAMP, frame_timestamp
 
     fns = classified.frame_numbers.tolist()
     df = pd.DataFrame(

@@ -3,22 +3,19 @@
 Counterpart of swiftwatcher_tpu/pipeline/runner.py:run_video with the host
 tracker: build the ROI mask from the first frame, stream gray window
 batches to the device, run the localisation program per batch, step the
-shared host SegmentTracker (scipy) over each frame's centroids, classify
-the events and, when asked, write the six CSVs through the shared
-swiftwatcher_tpu/io/export.py (which needs pandas).
+host SegmentTracker (scipy) over each frame's centroids, classify
+the events and, when asked, write the six CSVs (io/export.py, which
+needs pandas).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
-
-from swiftwatcher_tpu.pipeline.tracking import Event, SegmentTracker
-from swiftwatcher_tpu.utils.metrics import RunMetrics
 
 from ..config import PipelineConfig
 from ..device import pin_numerics
@@ -26,7 +23,9 @@ from ..geometry import crop_region_from_corners, roi_crop_region_from_corners
 from ..io.prefetch import WindowPrefetcher
 from ..io.source import FrameSource
 from ..ops.roi_mask import generate_roi_mask
+from ..utils.metrics import RunMetrics
 from .events import ClassifiedEvents, classify_events, labels_dataframe
+from .tracking import Event, SegmentTracker
 from .window import localize_windows_gray
 
 
@@ -53,7 +52,7 @@ def frame_centroids(table, b: int, t: int):
 
 
 def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md: {item})")
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1 item {item})")
 
 
 def run_video(
@@ -64,6 +63,7 @@ def run_video(
     export_dir: Optional[Path] = None,
     debug: bool = False,
     *,
+    status_cb: Optional[Callable[[int, int], None]] = None,
     tracker_impl: str = "host",
     mesh=None,
     segment_filter=None,
@@ -73,19 +73,20 @@ def run_video(
 ) -> VideoResult:
     """Count swifts in one video on `device`.
 
-    On a CUDA device this pins full-f32 products first (`pin_numerics`)."""
+    On a CUDA device this pins full-f32 products first (`pin_numerics`).
+    status_cb(frames_processed, total_frames) is called after each batch."""
     if tracker_impl != "host":
-        _not_ported(f"tracker_impl={tracker_impl!r}", "device tracker")
+        _not_ported(f"tracker_impl={tracker_impl!r}", "1, device tracker")
     if mesh is not None:
-        _not_ported("mesh", "parallel/mesh.py on torch.distributed")
+        _not_ported("mesh", "6, mesh")
     if segment_filter is not None:
-        _not_ported("segment_filter", "--classify")
+        _not_ported("segment_filter", "4, --classify")
     if checkpoint_path is not None:
-        _not_ported("checkpoint_path", "runner completion, checkpoint/resume")
+        _not_ported("checkpoint_path", "2, checkpoint/resume")
     if profile_dir is not None:
-        _not_ported("profile_dir", "runner completion, profiling")
+        _not_ported("profile_dir", "2, profiling")
     if export_segments_dir is not None:
-        _not_ported("export_segments_dir", "--classify")
+        _not_ported("export_segments_dir", "4, --classify and --export")
     device = torch.device(device)
     if device.type == "cuda":
         pin_numerics()
@@ -119,6 +120,8 @@ def run_video(
         metrics.batches += 1
         metrics.frames_processed = frames_processed
         metrics.stage_stop("consume")
+        if status_cb is not None:
+            status_cb(frames_processed, source.total_frames)
 
     prefetcher = WindowPrefetcher(source, crop_region, device, cfg)
     try:
@@ -152,7 +155,7 @@ def run_video(
 
     out_dir = None
     if classified is not None and export_dir is not None:
-        from swiftwatcher_tpu.io.export import export_results, generate_test_dir
+        from ..io.export import export_results, generate_test_dir
 
         out_dir = generate_test_dir(Path(export_dir)) if debug else Path(export_dir)
         export_results(

@@ -29,7 +29,7 @@ def localize_windows_gray(
     if cfg.stabilize_max_shift > 0:
         raise NotImplementedError(
             "stabilize_max_shift > 0 is not ported yet "
-            "(ROADMAP.md, modules to port: opt-ins)"
+            "(ROADMAP.md section 1 item 5, opt-ins)"
         )
     B, T, H, W = gray.shape
     motion, iters = rpca_motion_window_batched(gray, cfg)

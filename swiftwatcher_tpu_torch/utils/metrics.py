@@ -1,0 +1,90 @@
+"""Structured run metrics.
+
+The port's copy of swiftwatcher_tpu/utils/metrics.py.  The reference's only
+observability is two stdout lines (ui.py:216-227); these are structured
+per-stage counters (frames/sec, segments/frame, IALM iterations, events),
+exportable as a JSON run manifest.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from pathlib import Path
+from typing import Dict, List
+
+
+@dataclasses.dataclass
+class RunMetrics:
+    started_unix: float = dataclasses.field(default_factory=time.time)
+    frames_processed: int = 0
+    windows: int = 0
+    batches: int = 0
+    segments_total: int = 0
+    events: int = 0
+    ialm_iters: List[int] = dataclasses.field(default_factory=list)
+    read_errors: int = 0
+    wire_bytes: int = 0       # bytes enqueued host->device
+    track_overflows: int = 0  # frames whose segments exceeded max_tracks
+                              # (device tracker only; the host tracker has
+                              # no capacity)
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # DEVICE time per stage, filled only by a profiled run (not ported yet:
+    # ROADMAP.md section 1 item 2)
+    device_stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    _stage_t0: Dict[str, float] = dataclasses.field(default_factory=dict, repr=False)
+
+    def stage_start(self, name: str) -> None:
+        self._stage_t0[name] = time.perf_counter()
+
+    def stage_stop(self, name: str) -> None:
+        t0 = self._stage_t0.pop(name, None)
+        if t0 is not None:
+            self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + (
+                time.perf_counter() - t0
+            )
+
+    def device_stage_add(self, name: str, seconds: float) -> None:
+        self.device_stage_seconds[name] = (
+            self.device_stage_seconds.get(name, 0.0) + seconds
+        )
+
+    @property
+    def elapsed(self) -> float:
+        return time.time() - self.started_unix
+
+    @property
+    def fps(self) -> float:
+        e = self.elapsed
+        return self.frames_processed / e if e > 0 else 0.0
+
+    def summary(self) -> dict:
+        it = self.ialm_iters
+        return {
+            "frames_processed": self.frames_processed,
+            "windows": self.windows,
+            "batches": self.batches,
+            "frames_per_sec": round(self.fps, 2),
+            "segments_total": self.segments_total,
+            "segments_per_frame": round(
+                self.segments_total / max(self.frames_processed, 1), 3
+            ),
+            "events": self.events,
+            "ialm_iters_mean": round(sum(it) / len(it), 2) if it else None,
+            "ialm_iters_max": max(it) if it else None,
+            "read_errors": self.read_errors,
+            "wire_bytes": self.wire_bytes,
+            "track_overflows": self.track_overflows,
+            "stage_seconds": {k: round(v, 3) for k, v in self.stage_seconds.items()},
+            "device_stage_seconds": {
+                k: round(v, 3) for k, v in self.device_stage_seconds.items()
+            },
+            "elapsed_s": round(self.elapsed, 3),
+        }
+
+    def write_manifest(self, path: Path) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(self.summary(), fh, indent=2)

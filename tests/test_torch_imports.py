@@ -1,7 +1,7 @@
-"""The port and chip_smoke.py import without JAX, pandas, cv2, PIL, h5py
-or chex, the scripts that drive the port on the card import the port and
-never the JAX package, and the port's synthetic video is the JAX
-package's, byte for byte."""
+"""The port and chip_smoke.py import nothing of the JAX package (not even
+a module of it without JAX) and none of JAX, pandas, cv2, PIL, h5py or
+chex; the scripts that drive the port on the card import the port alone;
+and the port's synthetic video is the JAX package's, byte for byte."""
 
 import ast
 import subprocess
@@ -15,7 +15,8 @@ from swiftwatcher_tpu.io.synthetic import make_video as jax_make_video
 from swiftwatcher_tpu_torch.io.synthetic import make_video
 
 ROOT = Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "pandas", "cv2", "PIL", "h5py", "chex")
+# Top-level names only: "swiftwatcher_tpu_torch" is not "swiftwatcher_tpu".
+BLOCKED = ("swiftwatcher_tpu", "jax", "jaxlib", "pandas", "cv2", "PIL", "h5py", "chex")
 
 PORT_MODULES = [
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
@@ -51,17 +52,22 @@ def test_port_and_chip_smoke_import_without_blocked_packages():
     assert proc.stdout.strip() == f"ok {len(modules)}"
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile.py"])
-def test_card_scripts_import_the_port_only(script):
-    """Shared JAX-free modules reach them through the port's re-exports."""
+def _imported_tops(path):
+    """Top-level package of every import statement in a source file."""
     names = []
-    for node in ast.walk(ast.parse((ROOT / script).read_text())):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names += [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.module:
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             names.append(node.module)
-    tops = {n.split(".")[0] for n in names}
-    assert "swiftwatcher_tpu" not in tops and not tops & set(BLOCKED), sorted(tops)
+    return {n.split(".")[0] for n in names}
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile.py"])
+def test_card_scripts_import_the_port_only(script):
+    """The port keeps its own copies of the host modules it needs."""
+    tops = _imported_tops(ROOT / script)
+    assert not tops & set(BLOCKED), sorted(tops)
     assert "swiftwatcher_tpu_torch" in tops
 
 
@@ -69,6 +75,8 @@ def test_no_jax_in_port_sources():
     for p in (ROOT / "swiftwatcher_tpu_torch").rglob("*.py"):
         text = p.read_text()
         assert "import jax" not in text and "from jax" not in text, p
+        assert "swiftwatcher_tpu." not in text.replace("swiftwatcher_tpu_torch.", ""), p
+        assert "swiftwatcher_tpu" not in _imported_tops(p), p
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,15 +1,20 @@
 """Port vs JAX package end to end: run_video on the scenes of
-tests/test_end_to_end.py.  Events (frame numbers and centroids), predicted
-and rejected counts, and ground truth are equal; exported CSVs are
-byte-equal."""
+tests/test_end_to_end.py, with the warm-basis and the cold-start solver.
+Events (frame numbers and centroids), predicted and rejected counts, and
+ground truth are equal; exported CSVs are byte-equal.  Each package runs
+with its own DEFAULT_CONFIG."""
+
+import dataclasses
 
 import pytest
 import torch
 
-from swiftwatcher_tpu.config import DEFAULT_CONFIG
+from swiftwatcher_tpu.config import DEFAULT_CONFIG as JAX_CONFIG
 from swiftwatcher_tpu.io.readers import ArraySource as JaxArraySource
 from swiftwatcher_tpu.io.synthetic import make_video
 from swiftwatcher_tpu.pipeline.runner import run_video as jax_run_video
+from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG
+from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
 from swiftwatcher_tpu_torch.io.source import ArraySource
 from swiftwatcher_tpu_torch.pipeline.runner import run_video
 
@@ -29,18 +34,25 @@ def _events(result):
     return [(e.frame_number, e.first_centroid, e.last_centroid) for e in result.events]
 
 
-def _both(video, **kw):
+def _both(video, warm=True, **kw):
     ours = run_video(ArraySource(video.frames, fps=video.fps), video.corners,
-                     DEFAULT_CONFIG, CPU, **kw)
+                     dataclasses.replace(DEFAULT_CONFIG, rpca_warm_basis=warm), CPU, **kw)
     theirs = jax_run_video(JaxArraySource(video.frames, fps=video.fps), video.corners,
-                           DEFAULT_CONFIG, tracker_impl="host", **kw)
+                           dataclasses.replace(JAX_CONFIG, rpca_warm_basis=warm),
+                           tracker_impl="host", **kw)
     return ours, theirs
 
 
-@pytest.mark.parametrize("scene", sorted(SCENES))
-def test_run_video_vs_jax(scene):
+# warm cases keep the bare scene name as their id
+CASES = [pytest.param(s, True, id=s) for s in sorted(SCENES)] + [
+    pytest.param(s, False, id=f"{s}-cold") for s in sorted(SCENES)
+]
+
+
+@pytest.mark.parametrize("scene, warm", CASES)
+def test_run_video_vs_jax(scene, warm):
     video = make_video(**SCENES[scene])
-    ours, theirs = _both(video)
+    ours, theirs = _both(video, warm)
     assert _events(ours) == _events(theirs)
     assert ours.total_predicted == theirs.total_predicted
     assert ours.total_rejected == theirs.total_rejected
@@ -58,7 +70,7 @@ def test_exported_csvs_byte_equal(tmp_path):
     ours = run_video(ArraySource(video.frames, fps=video.fps), video.corners,
                      DEFAULT_CONFIG, CPU, export_dir=tmp_path / "torch")
     jax_run_video(JaxArraySource(video.frames, fps=video.fps), video.corners,
-                  DEFAULT_CONFIG, export_dir=tmp_path / "jax", tracker_impl="host")
+                  JAX_CONFIG, export_dir=tmp_path / "jax", tracker_impl="host")
     names = sorted(p.name for p in (tmp_path / "jax").glob("*.csv"))
     assert len(names) == 6
     assert sorted(p.name for p in (tmp_path / "torch").glob("*.csv")) == names
@@ -79,7 +91,6 @@ def test_unported_options_raise(kw):
 
 
 def test_partial_batch_pads_by_repeating_the_last_window():
-    from swiftwatcher_tpu.geometry import crop_region_from_corners
     from swiftwatcher_tpu_torch.io.prefetch import WindowPrefetcher
 
     video = make_video(seed=0, n_frames=30, n_entering=0, n_crossing=0)

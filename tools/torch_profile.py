@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch/CUDA port's main path, on one GPU.
 
-    python3 tools/torch_profile.py [--runs 7] [--frames 2016]
+    python3 tools/torch_profile.py [--runs 7] [--frames 2016] [--set field=value ...]
 
 On the 1080p bench scene (`make_video(seed=0, n_frames=63, H=1080, W=1920,
-n_entering=2, n_crossing=1, n_vanishing=1)`, 216 x 432 crop, default
-config), after the card's name and power limit:
+n_entering=2, n_crossing=1, n_vanishing=1)`, 216 x 432 crop, the default
+config with the --set overrides, e.g. `--set rpca_warm_basis=false` for
+the cold-start solver), after the card's name and power limit:
 
   1. device and host milliseconds of each stage of one batch of 16 x 21
      frames (CUDA events, mean of 5 calls after a warm-up): RPCA, the
@@ -36,7 +37,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from swiftwatcher_tpu_torch import build  # noqa: E402
-from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG as cfg  # noqa: E402
+from swiftwatcher_tpu_torch.config import config_with_overrides  # noqa: E402
 from swiftwatcher_tpu_torch.device import pin_numerics, require_cuda  # noqa: E402
 from swiftwatcher_tpu_torch.geometry import crop_region_from_corners  # noqa: E402
 from swiftwatcher_tpu_torch.io.source import LoopingArraySource  # noqa: E402
@@ -64,7 +65,7 @@ def timed(fn, reps: int = 5):
     return start.elapsed_time(stop) / reps, (time.perf_counter() - t0) * 1e3 / reps, out
 
 
-def stage_times(bench, dev) -> None:
+def stage_times(bench, dev, cfg) -> None:
     (x1, y1), (x2, y2) = crop_region_from_corners(bench.corners, cfg)
     B, T = cfg.batch_windows, cfg.window_size
     idx = np.arange(B * T) % len(bench.frames)
@@ -89,7 +90,7 @@ def stage_times(bench, dev) -> None:
           f"{B} windows x {T} frames x {H} x {W}: {json.dumps(stages)}", flush=True)
 
 
-def run_once(bench, dev, frames: int):
+def run_once(bench, dev, cfg, frames: int):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -103,7 +104,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=7)
     ap.add_argument("--frames", type=int, default=2016)
+    ap.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE",
+                    help="override a PipelineConfig field (repeatable)")
     args = ap.parse_args()
+    cfg = config_with_overrides(args.set)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -113,11 +117,12 @@ def main() -> int:
     print(f"kernel build {build.build_all():.2f} s", flush=True)
     bench = make_video(seed=0, n_frames=63, H=1080, W=1920,
                        n_entering=2, n_crossing=1, n_vanishing=1)
-    stage_times(bench, dev)
+    print(f"config overrides: {args.set}", flush=True)
+    stage_times(bench, dev, cfg)
 
     fps = []
     for run in range(args.runs):
-        r, secs = run_once(bench, dev, args.frames)
+        r, secs = run_once(bench, dev, cfg, args.frames)
         fps.append(r.frames_processed / secs)
         stages = {k: round(v, 4) for k, v in r.metrics.stage_seconds.items()}
         print(f"run {run}: {fps[-1]:.2f} frames/s over {r.frames_processed} frames in "
@@ -133,7 +138,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run_once(bench, dev, args.frames)
+        _, wall = run_once(bench, dev, cfg, args.frames)
     ka = prof.key_averages()
     # device time once: the kernels' own rows (operator rows repeat it)
     device_ms = sum(
