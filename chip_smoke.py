@@ -12,12 +12,18 @@ path (`run_video`) end to end:
   3. K1 (fused motion filter) vs the plain chain at (336, 216, 432), on RPCA
      motion of the 1080p scene plus tile-boundary cases: bit-equal;
   4. K2 (fused CCL) vs its plain version: swept labels, compact labels and
-     flags bit-equal, on that motion plus a snake and a dense speckle;
+     flags bit-equal, on that motion plus a snake and a dense speckle, on
+     all-foreground and empty frames and shapes that are not a multiple of
+     its tile; its time on that motion and on 336 dense speckle frames;
      then the slow-path kernels on the frames K2 flags, each vs its plain
      version at the planes the slow path hands it: K5 (sweep chunk) on
      K2's swept labels, K3 (whole-frame convergence) on the labels after
      K5's sweep budget, K4 (rank compaction) on the converged labels, all
-     bit-equal; label_components on the card equals it on the CPU;
+     bit-equal; K3 also on the rank plane, with max_iters 0, on a frame
+     whose foreground touches all four edges and on 1-row and 1-column
+     shapes, and timed apart on the close-pass frames (those the main path
+     meets) and on the snake + speckle pair; label_components on the card
+     equals it on the CPU;
   5. run_video on the small synthetic scene on the card and on the CPU:
      equal events, 2 predicted and 1 rejected;
   6. run_video over 1008 frames of the 1080p scene (216 x 432 crop):
@@ -148,7 +154,10 @@ K1_EXTRA = (
 )
 # K2 shapes beyond the main path's, with a foreground density each.
 K2_EXTRA = (((4, 47, 121), 0.3), ((2, 1, 500), 0.5), ((2, 300, 1), 0.5),
-            ((3, 64, 64), 0.7))
+            ((3, 64, 64), 0.7), ((2, 216, 432), 1.0), ((2, 216, 432), 0.0),
+            ((3, 100, 200), 0.5))
+# The dense batch K2 is also timed on: speckle at snake_frames' density.
+DENSE_DENSITY = 0.38
 
 
 def blob_motion(np, rng, shape) -> "np.ndarray":
@@ -351,6 +360,20 @@ def run() -> None:
     )
     print(f"phase 4 K2 time at {tuple(fg_main.shape)}: kernel {k2_ms:.4f} ms, "
           f"plain {k2_plain_ms:.4f} ms [{card}]", flush=True)
+    dense = torch.from_numpy(
+        np.random.default_rng(5).random(tuple(fg_main.shape)) < DENSE_DENSITY).to(dev)
+    for a, b in zip(label_rank_fused(dense, RANK_SWEEPS),
+                    label_rank_fused_reference(dense, RANK_SWEEPS)):
+        check(torch.equal(a, b), "K2 disagrees with its plain version on the dense batch")
+    k2_dense_ms, k2_dense_plain_ms = alternate_ms(
+        torch,
+        lambda: label_rank_fused_reference(dense, RANK_SWEEPS),
+        lambda: label_rank_fused(dense, RANK_SWEEPS),
+    )
+    print(f"phase 4 K2 time on {tuple(dense.shape)} speckle at density {DENSE_DENSITY}: "
+          f"kernel {k2_dense_ms:.4f} ms, plain {k2_dense_plain_ms:.4f} ms, bit-equal, "
+          f"{int(label_rank_fused(dense, RANK_SWEEPS)[2].sum())} frames flagged [{card}]",
+          flush=True)
 
     # the slow path's kernels on the flagged frames, at the planes it gives them
     slow = fk.nonzero().flatten()
@@ -380,10 +403,50 @@ def run() -> None:
               f"plain {slow_ms[name][1]:.4f} ms [{card}]", flush=True)
     # K3 also finishes rank floods: the rank map after K4 and K5's budget
     r_in = sweep_chunk_reference(rank_seed_sweep_reference(k4_in, RANK_SWEEPS), fg_s, 24, P)
-    got = converge_frames(r_in, fg_s, cfg.ccl_max_iters, P)
-    want = converge_frames_reference(r_in, fg_s, cfg.ccl_max_iters, P)
-    slow_err["converge_frames"] = max(slow_err["converge_frames"], f32_err(got, want))
-    check(torch.equal(got, want), "converge_frames disagrees with its plain version on ranks")
+
+    def k3_compare(x, f, what, max_iters=cfg.ccl_max_iters):
+        """K3 bit-equal to its plain version, which must reach its fixpoint
+        (or, for max_iters 0, return the input)."""
+        sentinel = float(f[0].numel())
+        got = converge_frames(x, f, max_iters, sentinel)
+        want = converge_frames_reference(x, f, max_iters, sentinel)
+        torch.cuda.synchronize()
+        if max_iters:
+            check(torch.equal(want, sweep_chunk_reference(want, f, 1, sentinel)),
+                  f"the plain K3 did not reach the fixpoint on {what}")
+        else:
+            check(torch.equal(want, x), "the plain K3 with max_iters 0 changed its input")
+        slow_err["converge_frames"] = max(slow_err["converge_frames"], f32_err(got, want))
+        check(torch.equal(got, want), f"converge_frames disagrees with its plain version on {what}")
+
+    k3_compare(r_in, fg_s, "the rank plane")
+    k3_compare(k3_in, fg_s, "the label plane with max_iters 0", max_iters=0)
+    edge = rng.random((2, H, W)) < 0.45
+    edge[:, [0, -1], :] = True
+    edge[:, :, [0, -1]] = True
+    for what, f in (("a frame touching all four edges", edge),
+                    ("1 x 500", rng.random((2, 1, 500)) < 0.5),
+                    ("300 x 1", rng.random((2, 300, 1)) < 0.5)):
+        f = torch.from_numpy(f).to(dev)
+        k3_compare(label_rank_fused_reference(f, RANK_SWEEPS)[0], f, what)
+    print(f"phase 4 K3 bit-equal to plain on the label and rank planes, with max_iters 0, "
+          f"on a frame touching all four edges, and at 1 x 500 and 300 x 1", flush=True)
+    # K3 timed apart on the close-pass frames (flagged among the main path's
+    # B*T) and on the snake + speckle pair
+    k3_split = {}
+    for part, sel in (("close-pass", slow < B * T), ("snake+speckle", slow >= B * T)):
+        x, f = k3_in[sel].contiguous(), fg_s[sel].contiguous()
+        k3_split[part] = (int(sel.sum()), *alternate_ms(
+            torch,
+            lambda: converge_frames_reference(x, f, cfg.ccl_max_iters, P),
+            lambda: converge_frames(x, f, cfg.ccl_max_iters, P),
+            reps=3))
+    k3_close_n, k3_ms, k3_plain_ms = k3_split["close-pass"]
+    k3_pair_n, k3_pair_ms, k3_pair_plain_ms = k3_split["snake+speckle"]
+    print(f"phase 4 converge_frames split: close-pass {k3_close_n} frames kernel {k3_ms:.4f} ms "
+          f"plain {k3_plain_ms:.4f} ms; snake+speckle {k3_pair_n} frames kernel "
+          f"{k3_pair_ms:.4f} ms plain {k3_pair_plain_ms:.4f} ms; pair / close-pass "
+          f"{k3_pair_ms / k3_ms:.2f} [{card}]", flush=True)
     before = label_components.slow_path_frames
     lab_gpu, cnt_gpu = label_components(fg, cfg.ccl_max_iters)
     check(label_components.slow_path_frames > before, "slow path not taken")
@@ -578,7 +641,7 @@ def run() -> None:
         "label_rank_fused": bound(fg_main.numel() * 9 + fg_main.shape[0],
                                   fg_main.numel() * (25 * 4 + 2)),
         "sweep_chunk": bound(k5_in.shape[0] * hw * 9, k5_in.shape[0] * hw * 4 * 8),
-        "converge_frames": bound(k3_in.shape[0] * hw * 9, k3_in.shape[0] * hw * 12),
+        "converge_frames": bound(k3_close_n * hw * 9, k3_close_n * hw * 12),
         "rank_seed_sweep": bound(k4_in.shape[0] * hw * 8, k4_in.shape[0] * hw * (12 * 4 + 2)),
         "ialm_front": k6_bound,
     }
@@ -594,6 +657,7 @@ def run() -> None:
          "launches": launches["label_rank_fused"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]
+    slow_ms["converge_frames"] = (k3_ms, k3_plain_ms)   # on the close-pass frames
     for name, source, replaces in (
         ("sweep_chunk", "ccl_sweep.cu", "ccl_sweep.py:87"),
         ("converge_frames", "ccl_local.cu", "ccl_local.py:134"),

@@ -60,8 +60,12 @@ def _flood(
 def _converge(
     x: torch.Tensor, fg: torch.Tensor, sentinel: float, changed: bool, max_iters: int
 ) -> Tuple[torch.Tensor, bool]:
-    """K3 on an unsettled flood, then report whether it is still unsettled
-    (only when K3 hit its `max_iters` cap)."""
+    """K3 on an unsettled flood, then report whether it is still unsettled.
+
+    Only the plain version (a CPU tensor) can stop at its `max_iters` cap
+    unsettled; the kernel gives the fixpoint for any cap >= 1, so on the
+    card this reports settled and the callers skip their insurance (pointer
+    jumping, the rank gather), which would reach that same fixpoint."""
     if changed:
         x = converge_frames(x, fg, max_iters, sentinel)
         changed = _unsettled(x, fg, sentinel)

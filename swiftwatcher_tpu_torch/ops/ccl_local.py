@@ -2,7 +2,8 @@
 
 Counterpart of swiftwatcher_tpu/ops/pallas/ccl_local.py:converge_frames.
 Floods each frame of an (N, H, W) f32 label batch to its exact fixpoint
-under its bool foreground, by super-sweeps of
+under its bool foreground.  The TPU kernel and the plain version here run
+super-sweeps of
 
     3x3 min sweep -> segmented running min along rows (left to right,
     then right to left) -> along columns (top to bottom, then bottom to top)
@@ -10,11 +11,26 @@ under its bool foreground, by super-sweeps of
 until a super-sweep changes nothing or `max_iters` have run.  A run is a
 stretch of foreground; labels never cross background.  A component then
 converges in about as many super-sweeps as its geodesic has changes of
-direction.  The slow path of label_components (ops/ccl.py) runs it.
+direction.  The slow path of label_components (ops/ccl.py) runs it on
+label planes and on rank planes, whose values lie in [0, sentinel].
 
-On a CUDA tensor `converge_frames` launches csrc/ccl_local.cu; on a CPU
-tensor it runs `converge_frames_reference`, which scans by log-doubling as
-the TPU kernel does.
+That fixpoint has a closed form: with v the first 3x3 min step (for a
+foreground p, the min of the input over p's 3x3 window inside the frame),
+a foreground pixel gets the min of v over its 8-connected foreground
+component and a background pixel the sentinel.  On a CUDA tensor
+`converge_frames` launches csrc/ccl_local.cu, which computes that closed
+form by a union-find, so its cost does not depend on a component's shape.
+
+Cap semantics: `max_iters` == 0 returns the input on either device.  For
+`max_iters` >= 1 the kernel always gives the fixpoint, bit-equal to the
+plain version wherever the plain version reaches it within the cap; where
+the plain version would stop at its cap first, the kernel gives the
+fixpoint instead.  label_components (ops/ccl.py) then finds the frame
+settled and skips its pointer-jump insurance, whose result is that same
+fixpoint, so its labels are the same either way.
+
+On a CPU tensor `converge_frames` runs `converge_frames_reference`, which
+scans by log-doubling as the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -73,8 +89,9 @@ def converge_frames_reference(
 def converge_frames(
     lbl: torch.Tensor, fg: torch.Tensor, max_iters: int, sentinel: float
 ) -> torch.Tensor:
-    """(N, H, W) f32 labels + bool fg -> labels at the per-frame fixpoint
-    (or after `max_iters` super-sweeps)."""
+    """(N, H, W) f32 labels in [0, sentinel] + bool fg -> labels at the
+    per-frame fixpoint (on the CPU, after at most `max_iters`
+    super-sweeps; see the module docstring for the cap)."""
     if lbl.device.type == "cpu":
         return converge_frames_reference(lbl, fg, max_iters, sentinel)
     build.check_operand("converge_frames", lbl, torch.float32)

@@ -17,7 +17,12 @@ converged f32 labels (foreground = label < sentinel) -> seeded ranks ->
 `sweeps` sweeps -> f32 rank map (background = sentinel).
 
 On a CUDA tensor each wrapper launches csrc/rank_compact.cu; on a CPU
-tensor it runs its `*_reference` version.
+tensor it runs its `*_reference` version.  K2's kernel works on tiles of
+`K2_TILE` pixels, each staged with a halo in shared memory, and ranks by
+root counts per (row, `K2_SEGMENT`-column segment) of a frame.  On a frame
+it does not flag it gathers each pixel's root rank instead of flooding
+the ranks: the flood's result there is that rank.  K4's kernel works on
+whole frames.
 """
 
 from __future__ import annotations
@@ -32,6 +37,12 @@ from .ccl_sweep import min_sweep, sweep_chunk_reference
 # Sweeps per flood stage, as the JAX package's RANK_SWEEPS: covers
 # components of flood distance <= 12 (single blobs and merged pairs).
 RANK_SWEEPS = 12
+
+# K2's kernel: output tile (rows, columns), the columns of one root count
+# (a warp ballot), and the most sweeps its shared-memory halo allows.
+K2_TILE = (32, 64)
+K2_SEGMENT = 32
+K2_MAX_SWEEPS = 32
 
 
 def raster_index(H: int, W: int, device) -> torch.Tensor:
@@ -72,15 +83,18 @@ def label_rank_fused(
     N, H, W = fg.shape
     if H * W >= 1 << 24:
         raise ValueError("label_rank_fused: crop too large for exact f32 labels")
+    if not 0 <= sweeps <= K2_MAX_SWEEPS:
+        raise ValueError(f"label_rank_fused: sweeps must be 0..{K2_MAX_SWEEPS}, got {sweeps}")
     lbl = torch.empty((N, H, W), dtype=torch.float32, device=fg.device)
     labels = torch.empty((N, H, W), dtype=torch.int32, device=fg.device)
     flag = torch.empty((N,), dtype=torch.uint8, device=fg.device)
     if N == 0:
         return lbl, labels, flag.bool()
-    scratch = torch.empty_like(lbl)
+    # root counts, then root bits, per (frame, row, segment)
+    counts = torch.empty((2, N, H, -(-W // K2_SEGMENT)), dtype=torch.int32, device=fg.device)
     build.launch(
         "rank_compact", "swt_label_rank_fused", fg.device,
-        fg.data_ptr(), lbl.data_ptr(), labels.data_ptr(), scratch.data_ptr(),
+        fg.data_ptr(), lbl.data_ptr(), labels.data_ptr(), counts.data_ptr(),
         flag.data_ptr(), N, H, W, sweeps,
     )
     label_rank_fused.launches += 1

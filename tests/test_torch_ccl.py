@@ -1,5 +1,7 @@
 """Port vs JAX package: the plain versions of K2-K5 against the Pallas
-kernels in interpret mode, and label_components with its slow path.
+kernels in interpret mode, and label_components with its slow path; the
+closed form K3's kernel computes, and K2's kernel schedule emulated on
+tiles, against the plain versions.
 
 Tolerance: bit-equal labels, counts, swept labels, rank maps and flagged
 frames."""
@@ -21,7 +23,10 @@ from swiftwatcher_tpu_torch.ops import ccl as port_ccl
 from swiftwatcher_tpu_torch.ops.ccl import label_components, wrap_labels_uint8
 from swiftwatcher_tpu_torch.ops.ccl_local import converge_frames, converge_frames_reference
 from swiftwatcher_tpu_torch.ops.ccl_sweep import sweep_chunk, sweep_chunk_reference
+from swiftwatcher_tpu_torch.ops.ccl_sweep import min_sweep
 from swiftwatcher_tpu_torch.ops.rank_compact import (
+    K2_SEGMENT,
+    K2_TILE,
     RANK_SWEEPS,
     label_rank_fused,
     label_rank_fused_reference,
@@ -209,3 +214,140 @@ def test_wrap_labels_uint8(rng):
     labels = rng.integers(0, 700, size=(2, 9, 11)).astype(np.int32)
     want = np.asarray(jax_wrap(jnp.asarray(labels)))
     np.testing.assert_array_equal(wrap_labels_uint8(torch.from_numpy(labels)).numpy(), want)
+
+
+def _component_min_of_first_step(x, fg):
+    """K3's closed form: v = the 3x3 min of x inside the frame; a fg pixel
+    gets the min of v over its 8-connected component, background P."""
+    T, H, W = fg.shape
+    P = float(H * W)
+    out = np.full((T, H, W), P, np.float32)
+    for t in range(T):
+        v = ndimage.minimum_filter(x[t], size=3, mode="constant", cval=P)
+        cc, n = ndimage.label(fg[t], structure=np.ones((3, 3)))
+        if n:
+            mins = np.asarray(ndimage.minimum(v, cc, index=np.arange(1, n + 1)), np.float32)
+            out[t][fg[t]] = mins[cc[fg[t]] - 1]
+    return out
+
+
+@pytest.mark.parametrize("plane", ["labels", "ranks"])
+@pytest.mark.parametrize("background", ["sentinel", "below"])
+@pytest.mark.parametrize("max_iters", [256, 0])
+def test_k3_fixpoint_is_component_min_of_first_step(rng, plane, background, max_iters):
+    """What K3's kernel computes for max_iters >= 1 (a union-find to the
+    component minimum of the first 3x3 step) equals the plain version and
+    the Pallas kernel run to their fixpoint; max_iters == 0 returns the
+    input on all three."""
+    fg = _scenes(rng)
+    P = float(fg.shape[1] * fg.shape[2])
+    x = _slow_path_inputs(fg)[plane]
+    if background == "below":
+        x = np.where(fg, x, rng.integers(0, int(P), size=fg.shape)).astype(np.float32)
+    plain = converge_frames_reference(torch.from_numpy(x), torch.from_numpy(fg), max_iters, P)
+    pallas = jax_converge_frames(jnp.asarray(x), jnp.asarray(fg), max_iters, P, interpret=True)
+    want = _component_min_of_first_step(x, fg) if max_iters else x
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(np.asarray(pallas), want)
+    if max_iters:
+        assert not np.array_equal(want, x)
+
+
+def _staged(plane, fg, y0, x0, SH, SW, fill):
+    """The (SH, SW) window of one frame at (y0, x0); out-of-frame cells are
+    background holding `fill`."""
+    H, W = fg.shape
+    a = torch.full((SH, SW), fill, dtype=plane.dtype)
+    m = torch.zeros((SH, SW), dtype=torch.bool)
+    ys, xs = max(y0, 0), max(x0, 0)
+    ye, xe = min(y0 + SH, H), min(x0 + SW, W)
+    a[ys - y0 : ye - y0, xs - x0 : xe - x0] = plane[ys:ye, xs:xe]
+    m[ys - y0 : ye - y0, xs - x0 : xe - x0] = fg[ys:ye, xs:xe]
+    return a, m
+
+
+def _staged_sweeps(a, m, sweeps, P):
+    """The kernel's sweeps in shared memory: two planes, sweep k updating
+    only the cells at least k inside the staged edge, stopping once a sweep
+    changes none of them.  Returns (result plane, last sweep changed)."""
+    planes = [a, a.clone()]
+    moving = True
+    SH, SW = a.shape
+    for k in range(1, sweeps + 1):
+        if not moving:
+            break
+        src, dst = planes
+        new = min_sweep(src[None], m[None], P)[0]
+        region = (slice(k, SH - k), slice(k, SW - k))
+        moving = bool((new[region] != src[region]).any())
+        dst[region] = new[region]
+        planes = [dst, src]
+    return planes[0], moving
+
+
+def _tiled_k2(fg, tile, sweeps):
+    """K2's kernel schedule on (TH, TW) tiles: label tiles staged with a halo
+    of sweeps + 1 (swept labels, probe OR'd into the flag, root bits), raster
+    offsets per (row, K2_SEGMENT-column segment), then per tile of a flagged
+    frame the rank flood staged with a halo of `sweeps`, and on an unflagged
+    frame each pixel's root rank gathered."""
+    N, H, W = fg.shape
+    TH, TW = tile
+    P = float(H * W)
+    idx = torch.arange(H * W, dtype=torch.float32).reshape(H, W)
+    lbl = torch.full((N, H, W), P)
+    roots = torch.zeros((N, H, W), dtype=torch.bool)
+    flag = torch.zeros(N, dtype=torch.bool)
+    tiles = [(ty0, tx0) for ty0 in range(0, H, TH) for tx0 in range(0, W, TW)]
+    h = sweeps + 1
+    for n in range(N):
+        for ty0, tx0 in tiles:
+            th, tw = min(TH, H - ty0), min(TW, W - tx0)
+            if not fg[n, ty0 : ty0 + th, tx0 : tx0 + tw].any():
+                continue
+            seed, m = _staged(idx, fg[n], ty0 - h, tx0 - h, TH + 2 * h, TW + 2 * h, P)
+            a, moving = _staged_sweeps(torch.where(m, seed, torch.full_like(seed, P)), m,
+                                       sweeps, P)
+            own = (slice(h, h + th), slice(h, h + tw))
+            if moving:
+                flag[n] |= bool((min_sweep(a[None], m[None], P)[0][own] != a[own]).any())
+            lbl[n, ty0 : ty0 + th, tx0 : tx0 + tw] = a[own]
+            roots[n, ty0 : ty0 + th, tx0 : tx0 + tw] = m[own] & (a[own] == idx[ty0 : ty0 + th, tx0 : tx0 + tw])
+    # raster offsets of the (row, segment) root counts, and each root's rank
+    nseg = -(-W // K2_SEGMENT)
+    padded = torch.zeros((N, H, nseg * K2_SEGMENT), dtype=torch.int64)
+    padded[:, :, :W] = roots.long()
+    counts = padded.reshape(N, H * nseg, K2_SEGMENT).sum(2)
+    offsets = (torch.cumsum(counts, 1) - counts).reshape(N, H, nseg)
+    within = torch.cumsum(padded.reshape(N, H, nseg, K2_SEGMENT), 3).reshape(N, H, -1)[:, :, :W]
+    rank = offsets.repeat_interleave(K2_SEGMENT, 2)[:, :, :W] + within  # at roots
+    labels = torch.zeros((N, H, W), dtype=torch.int32)
+    for n in range(N):
+        if not flag[n]:
+            r = lbl[n][fg[n]].long()
+            labels[n][fg[n]] = rank[n].flatten()[r].int()
+            continue
+        seeds = torch.where(roots[n], rank[n].float(), torch.full((H, W), P))
+        for ty0, tx0 in tiles:
+            th, tw = min(TH, H - ty0), min(TW, W - tx0)
+            if not fg[n, ty0 : ty0 + th, tx0 : tx0 + tw].any():
+                continue
+            a, m = _staged(seeds, fg[n], ty0 - sweeps, tx0 - sweeps,
+                           TH + 2 * sweeps, TW + 2 * sweeps, P)
+            a = _staged_sweeps(a, m, sweeps, P)[0]
+            own = (slice(sweeps, sweeps + th), slice(sweeps, sweeps + tw))
+            labels[n, ty0 : ty0 + th, tx0 : tx0 + tw] = torch.where(m[own], a[own], 0.0).int()
+    return lbl, labels, flag
+
+
+@pytest.mark.parametrize("tile", [K2_TILE, (20, 48), (13, 32)])
+def test_k2_tiled_schedule_equals_plain(rng, tile):
+    """The kernel's tile decomposition (at its own tile shape and at two that
+    divide neither H nor W) gives the plain version's swept labels, compact
+    labels and flags bit for bit, on frames it flags and frames it does not."""
+    fg = torch.from_numpy(_scenes(rng))
+    got = _tiled_k2(fg, tile, RANK_SWEEPS)
+    want = label_rank_fused_reference(fg, RANK_SWEEPS)
+    assert 0 < int(want[2].sum()) < fg.shape[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
