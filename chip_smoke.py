@@ -16,14 +16,19 @@ path (`run_video`) end to end:
      all-foreground and empty frames and shapes that are not a multiple of
      its tile; its time on that motion and on 336 dense speckle frames;
      then the slow-path kernels on the frames K2 flags, each vs its plain
-     version at the planes the slow path hands it: K5 (sweep chunk) on
-     K2's swept labels, K3 (whole-frame convergence) on the labels after
-     K5's sweep budget, K4 (rank compaction) on the converged labels, all
-     bit-equal; K3 also on the rank plane, with max_iters 0, on a frame
-     whose foreground touches all four edges and on 1-row and 1-column
-     shapes, and timed apart on the close-pass frames (those the main path
-     meets) and on the snake + speckle pair; label_components on the card
-     equals it on the CPU;
+     version at the planes the slow path hands it, bit-equal on every
+     output: K5 (sweep chunk and its "changed" flag) with 1, 4 and 8
+     sweeps on K2's swept labels, on the rank plane, on a background below
+     the sentinel, on all-foreground and empty frames, a frame touching all
+     four edges and at 47 x 121, 1 x 500 and 300 x 1, its flag false on
+     settled frames and true on unsettled ones; K4 (rank compaction and its
+     "unsettled" flag) with 0, 1, 12 and 32 sweeps on the converged labels
+     of the close-pass frames, of the snake + speckle pair and of the dense
+     batch; K3 (whole-frame convergence) on the labels after K5's sweep
+     budget and on the rank plane, with max_iters 0, on the edge frame and
+     the 1-row and 1-column shapes.  K3-K5 are timed apart on the
+     close-pass frames (those the main path meets), K3 also on the snake +
+     speckle pair; label_components on the card equals it on the CPU;
   5. run_video on the small synthetic scene on the card and on the CPU:
      equal events, 2 predicted and 1 rejected;
   6. run_video over 1008 frames of the 1080p scene (216 x 432 crop):
@@ -46,7 +51,9 @@ blob, deeper than the fast path's sweeps, so those frames take the CCL
 slow path and its kernels run on the main path.
 
 Prints kernel and end-to-end times on the way, then a {"kernels": [...]}
-line, the card line again, and last {"ok": true, "device": {...}}.  Each
+line, the card line again, and last {"ok": true, "device": {...}}.  Kernel
+times are device times by CUDA events (`time_ms`: the calls are queued
+behind a spin, so the host's dispatch is not timed).  Each
 kernel's `bound_ms` is the larger of the bytes it must move (each input
 read once, each output written once) over the card's memory rate and the
 operations it does on this run's inputs over the f32 rate (`bound`).  No
@@ -74,6 +81,10 @@ G_RTOL = 1e-4  # K6's G vs plain, relative to max|G|: another summation order
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s and f32 non-tensor ops/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Cycles per second that turn a spin's seconds into torch.cuda._sleep's
+# cycles: the H100's highest SM clock (1980 MHz) rounded up, so a spin
+# lasts at least as long as asked.
+SPIN_CYCLES_PER_S = 2.0e9
 
 
 class SmokeFailure(Exception):
@@ -93,25 +104,46 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device milliseconds per call, by CUDA events, after a warm-up."""
+def time_ms(torch, fn, reps: int = 10, what: str = "") -> float:
+    """Mean device milliseconds per call, by CUDA events, after a warm-up.
+
+    The events bracket the calls on the device alone: a spin kernel
+    (torch.cuda._sleep) queued first holds the stream while the host queues
+    the start event, the calls and the stop event, so the device runs them
+    back to back and the host's dispatch of each call (output allocation,
+    checks, ctypes) is not timed.  The spin lasts twice the host's time to
+    queue the calls, measured on a pass before, plus 1 ms.  With `what`, a
+    line is printed if the device ran dry anyway (the start event had
+    completed by the time the stop event was queued): then the time
+    includes dispatch gaps.  A function that synchronises inside is timed
+    with its host waits."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * host_s + 1e-3, 2.0) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
+    ran_dry = start.query()
     torch.cuda.synchronize()
+    if ran_dry and what:
+        print(f"time_ms: the device ran dry while {what} was queued; its time "
+              f"includes dispatch", flush=True)
     return start.elapsed_time(stop) / reps
 
 
-def alternate_ms(torch, plain, kernel, reps: int = 10):
+def alternate_ms(torch, plain, kernel, reps: int = 10, what: str = "the kernel"):
     """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
     p1 = time_ms(torch, plain, reps)
-    k1 = time_ms(torch, kernel, reps)
-    k2 = time_ms(torch, kernel, reps)
+    k1 = time_ms(torch, kernel, reps, what)
+    k2 = time_ms(torch, kernel, reps, what)
     p2 = time_ms(torch, plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -377,32 +409,80 @@ def run() -> None:
 
     # the slow path's kernels on the flagged frames, at the planes it gives them
     slow = fk.nonzero().flatten()
+    close = slow < B * T          # the close-pass frames; the rest, the snake pair
     fg_s, P = fg[slow].contiguous(), float(H * W)
     k5_in = lk[slow].contiguous()
-    k3_in = sweep_chunk_reference(k5_in, fg_s, 24, P)
+    k3_in = sweep_chunk_reference(k5_in, fg_s, 24, P)[0]
     k4_in = converge_frames_reference(k3_in, fg_s, cfg.ccl_max_iters, P)
-    check(torch.equal(k4_in, sweep_chunk_reference(k4_in, fg_s, 1, P)),
+    check(not sweep_chunk_reference(k4_in, fg_s, 1, P)[1].any(),
           "the plain K3 did not reach the fixpoint")
-    slow_cases = {
-        "sweep_chunk": (lambda: sweep_chunk(k5_in, fg_s, 4, P),
-                        lambda: sweep_chunk_reference(k5_in, fg_s, 4, P)),
-        "converge_frames": (lambda: converge_frames(k3_in, fg_s, cfg.ccl_max_iters, P),
-                            lambda: converge_frames_reference(k3_in, fg_s, cfg.ccl_max_iters, P)),
-        "rank_seed_sweep": (lambda: rank_seed_sweep(k4_in, RANK_SWEEPS),
-                            lambda: rank_seed_sweep_reference(k4_in, RANK_SWEEPS)),
-    }
-    slow_err, slow_ms = {}, {}
-    for name, (kernel, plain) in slow_cases.items():
-        got, want = kernel(), plain()
+    r_in = rank_seed_sweep_reference(k4_in, RANK_SWEEPS)[0]
+    slow_err = {"sweep_chunk": 0.0, "converge_frames": 0.0, "rank_seed_sweep": 0.0}
+    slow_ms = {}
+
+    def outputs_compare(name, got, want, what):
+        """Every output of a kernel (planes and flags) bit-equal to its
+        plain version's."""
         torch.cuda.synchronize()
-        slow_err[name] = f32_err(got, want)
-        check(torch.equal(got, want), f"{name} disagrees with its plain version")
-        slow_ms[name] = alternate_ms(torch, plain, kernel, reps=3)
-        print(f"phase 4 {name} vs plain on {tuple(fg_s.shape)}: max |diff| "
-              f"{slow_err[name]}, kernel {slow_ms[name][0]:.4f} ms, "
-              f"plain {slow_ms[name][1]:.4f} ms [{card}]", flush=True)
-    # K3 also finishes rank floods: the rank map after K4 and K5's budget
-    r_in = sweep_chunk_reference(rank_seed_sweep_reference(k4_in, RANK_SWEEPS), fg_s, 24, P)
+        for g, w in zip(got, want):
+            if g.dtype == torch.float32:
+                slow_err[name] = max(slow_err[name], f32_err(g, w))
+            check(torch.equal(g, w), f"{name} disagrees with its plain version on {what}")
+
+    edge = rng.random((2, H, W)) < 0.45
+    edge[:, [0, -1], :] = True
+    edge[:, :, [0, -1]] = True
+    shape_cases = (("a frame touching all four edges", edge),
+                   ("1 x 500", rng.random((2, 1, 500)) < 0.5),
+                   ("300 x 1", rng.random((2, 300, 1)) < 0.5))
+    # K5: the label and rank planes, a background below the sentinel, other
+    # shapes; its flag on settled and unsettled frames
+    below = torch.where(fg_s, k5_in, torch.from_numpy(
+        rng.integers(0, H * W, size=tuple(fg_s.shape)).astype(np.float32)).to(dev))
+    for what, x in (("the label plane", k5_in), ("the rank plane", r_in),
+                    ("a background below the sentinel", below)):
+        for sw in (1, 4, 8):
+            outputs_compare("sweep_chunk", sweep_chunk(x, fg_s, sw, P),
+                            sweep_chunk_reference(x, fg_s, sw, P), f"{what}, {sw} sweeps")
+    for what, f in (("all-foreground frames", np.ones((2, H, W), bool)),
+                    ("empty frames", np.zeros((2, H, W), bool)),
+                    ("47 x 121", rng.random((3, 47, 121)) < 0.5), *shape_cases):
+        f = torch.from_numpy(f).to(dev)
+        sentinel = float(f[0].numel())
+        x = label_rank_fused_reference(f, RANK_SWEEPS)[0]
+        for sw in (1, 4, 8):
+            outputs_compare("sweep_chunk", sweep_chunk(x, f, sw, sentinel),
+                            sweep_chunk_reference(x, f, sw, sentinel), f"{what}, {sw} sweeps")
+    for sw in (1, 4):
+        check(not sweep_chunk(k4_in, fg_s, sw, P)[1].any(), "K5 flags a settled frame")
+        check(bool(sweep_chunk(k5_in, fg_s, sw, P)[1].all()),
+              "K5 does not flag every frame K2 flagged")
+    print(f"phase 4 K5 bit-equal to plain (outputs and flags) with 1, 4 and 8 sweeps on the "
+          f"label and rank planes of {tuple(fg_s.shape)}, a background below the sentinel, "
+          f"all-foreground and empty frames, a frame touching all four edges, 47 x 121, "
+          f"1 x 500 and 300 x 1; flag false on the settled frames, true on K2's flagged ones",
+          flush=True)
+    # K4 on converged labels: the close-pass frames, the snake + speckle pair
+    # and the dense batch (converged by K3, which the plain flood would take
+    # long to reach; checked a fixpoint), every tile of which has foreground
+    dense_conv = converge_frames(label_rank_fused(dense, RANK_SWEEPS)[0], dense,
+                                 cfg.ccl_max_iters, P)
+    check(not sweep_chunk_reference(dense_conv, dense, 1, P)[1].any(),
+          "K3 did not converge the dense batch")
+    for what, x in (("the close-pass frames", k4_in[close]),
+                    ("the snake + speckle pair", k4_in[~close]),
+                    ("the dense batch", dense_conv)):
+        x = x.contiguous()
+        flags = []
+        for sw in (0, 1, RANK_SWEEPS, 32):
+            got = rank_seed_sweep(x, sw)
+            outputs_compare("rank_seed_sweep", got, rank_seed_sweep_reference(x, sw),
+                            f"{what}, {sw} sweeps")
+            flags.append(int(got[1].sum()))
+        print(f"phase 4 K4 bit-equal to plain (rank map and flag) on {what} "
+              f"{tuple(x.shape)} with 0, 1, {RANK_SWEEPS} and 32 sweeps; frames unsettled "
+              f"{flags}", flush=True)
+    # K3 on the labels after K5's budget and on the rank plane
 
     def k3_compare(x, f, what, max_iters=cfg.ccl_max_iters):
         """K3 bit-equal to its plain version, which must reach its fixpoint
@@ -412,41 +492,48 @@ def run() -> None:
         want = converge_frames_reference(x, f, max_iters, sentinel)
         torch.cuda.synchronize()
         if max_iters:
-            check(torch.equal(want, sweep_chunk_reference(want, f, 1, sentinel)),
+            check(not sweep_chunk_reference(want, f, 1, sentinel)[1].any(),
                   f"the plain K3 did not reach the fixpoint on {what}")
         else:
             check(torch.equal(want, x), "the plain K3 with max_iters 0 changed its input")
         slow_err["converge_frames"] = max(slow_err["converge_frames"], f32_err(got, want))
         check(torch.equal(got, want), f"converge_frames disagrees with its plain version on {what}")
 
-    k3_compare(r_in, fg_s, "the rank plane")
+    k3_compare(k3_in, fg_s, "the label plane")
+    # K3 also finishes rank floods: the rank map after K4 and K5's budget
+    k3_compare(sweep_chunk_reference(r_in, fg_s, 24, P)[0], fg_s, "the rank plane")
     k3_compare(k3_in, fg_s, "the label plane with max_iters 0", max_iters=0)
-    edge = rng.random((2, H, W)) < 0.45
-    edge[:, [0, -1], :] = True
-    edge[:, :, [0, -1]] = True
-    for what, f in (("a frame touching all four edges", edge),
-                    ("1 x 500", rng.random((2, 1, 500)) < 0.5),
-                    ("300 x 1", rng.random((2, 300, 1)) < 0.5)):
+    for what, f in shape_cases:
         f = torch.from_numpy(f).to(dev)
         k3_compare(label_rank_fused_reference(f, RANK_SWEEPS)[0], f, what)
     print(f"phase 4 K3 bit-equal to plain on the label and rank planes, with max_iters 0, "
           f"on a frame touching all four edges, and at 1 x 500 and 300 x 1", flush=True)
-    # K3 timed apart on the close-pass frames (flagged among the main path's
-    # B*T) and on the snake + speckle pair
-    k3_split = {}
-    for part, sel in (("close-pass", slow < B * T), ("snake+speckle", slow >= B * T)):
-        x, f = k3_in[sel].contiguous(), fg_s[sel].contiguous()
-        k3_split[part] = (int(sel.sum()), *alternate_ms(
-            torch,
-            lambda: converge_frames_reference(x, f, cfg.ccl_max_iters, P),
-            lambda: converge_frames(x, f, cfg.ccl_max_iters, P),
-            reps=3))
-    k3_close_n, k3_ms, k3_plain_ms = k3_split["close-pass"]
-    k3_pair_n, k3_pair_ms, k3_pair_plain_ms = k3_split["snake+speckle"]
-    print(f"phase 4 converge_frames split: close-pass {k3_close_n} frames kernel {k3_ms:.4f} ms "
-          f"plain {k3_plain_ms:.4f} ms; snake+speckle {k3_pair_n} frames kernel "
-          f"{k3_pair_ms:.4f} ms plain {k3_pair_plain_ms:.4f} ms; pair / close-pass "
-          f"{k3_pair_ms / k3_ms:.2f} [{card}]", flush=True)
+    # K3-K5 timed apart on the close-pass frames (flagged among the main
+    # path's B*T, the frames the main path meets); K3 also on the snake +
+    # speckle pair
+    x5, x3, x4, fc = (t[close].contiguous() for t in (k5_in, k3_in, k4_in, fg_s))
+    n_close = int(close.sum())
+    slow_ms["sweep_chunk"] = alternate_ms(
+        torch, lambda: sweep_chunk_reference(x5, fc, 4, P), lambda: sweep_chunk(x5, fc, 4, P),
+        reps=20, what="K5")
+    slow_ms["rank_seed_sweep"] = alternate_ms(
+        torch, lambda: rank_seed_sweep_reference(x4, RANK_SWEEPS),
+        lambda: rank_seed_sweep(x4, RANK_SWEEPS), reps=20, what="K4")
+    slow_ms["converge_frames"] = alternate_ms(
+        torch, lambda: converge_frames_reference(x3, fc, cfg.ccl_max_iters, P),
+        lambda: converge_frames(x3, fc, cfg.ccl_max_iters, P), reps=20, what="K3")
+    xp, fp = k3_in[~close].contiguous(), fg_s[~close].contiguous()
+    k3_pair_ms, k3_pair_plain_ms = alternate_ms(
+        torch, lambda: converge_frames_reference(xp, fp, cfg.ccl_max_iters, P),
+        lambda: converge_frames(xp, fp, cfg.ccl_max_iters, P), reps=3, what="K3 on the pair")
+    for name, label in (("sweep_chunk", "K5, 4 sweeps"), ("rank_seed_sweep", "K4"),
+                        ("converge_frames", "K3")):
+        print(f"phase 4 {label} on the {n_close} close-pass frames: kernel "
+              f"{slow_ms[name][0]:.4f} ms, plain {slow_ms[name][1]:.4f} ms, max |diff| "
+              f"{slow_err[name]} [{card}]", flush=True)
+    print(f"phase 4 K3 on the snake + speckle pair: kernel {k3_pair_ms:.4f} ms, plain "
+          f"{k3_pair_plain_ms:.4f} ms; pair / close-pass "
+          f"{k3_pair_ms / slow_ms['converge_frames'][0]:.2f} [{card}]", flush=True)
     before = label_components.slow_path_frames
     lab_gpu, cnt_gpu = label_components(fg, cfg.ccl_max_iters)
     check(label_components.slow_path_frames > before, "slow path not taken")
@@ -640,9 +727,9 @@ def run() -> None:
         "fused_motion_filter": k1_bound(torch, motion, cfg)[0],
         "label_rank_fused": bound(fg_main.numel() * 9 + fg_main.shape[0],
                                   fg_main.numel() * (25 * 4 + 2)),
-        "sweep_chunk": bound(k5_in.shape[0] * hw * 9, k5_in.shape[0] * hw * 4 * 8),
-        "converge_frames": bound(k3_close_n * hw * 9, k3_close_n * hw * 12),
-        "rank_seed_sweep": bound(k4_in.shape[0] * hw * 8, k4_in.shape[0] * hw * (12 * 4 + 2)),
+        "sweep_chunk": bound(n_close * (hw * 9 + 1), n_close * hw * 4 * 8),
+        "converge_frames": bound(n_close * hw * 9, n_close * hw * 12),
+        "rank_seed_sweep": bound(n_close * (hw * 8 + 1), n_close * hw * (12 * 4 + 2)),
         "ialm_front": k6_bound,
     }
     kernels = [
@@ -657,7 +744,6 @@ def run() -> None:
          "launches": launches["label_rank_fused"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
     ]
-    slow_ms["converge_frames"] = (k3_ms, k3_plain_ms)   # on the close-pass frames
     for name, source, replaces in (
         ("sweep_chunk", "ccl_sweep.cu", "ccl_sweep.py:87"),
         ("converge_frames", "ccl_local.cu", "ccl_local.py:134"),

@@ -51,7 +51,7 @@ _SIGNATURES = {
             _INT, _INT, _INT, _INT, _VOID_P,
         ],
         "swt_rank_seed_sweep": [
-            _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P,
+            _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _VOID_P,
         ],
     },
     "ccl_local": {
@@ -62,7 +62,7 @@ _SIGNATURES = {
     },
     "ccl_sweep": {
         "swt_sweep_chunk": [
-            _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
+            _VOID_P, _VOID_P, _VOID_P, _VOID_P, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
         ],
     },
     "ialm_front": {

@@ -10,16 +10,20 @@ backend.
     flags the frames whose label flood did not reach its fixpoint within
     RANK_SWEEPS sweeps (giant merges, snakes).
   * Slow path, flagged frames only, from K2's swept labels: chunks of 4
-    sweeps (K5, ops/ccl_sweep.py) up to 24 sweeps; then, if the flood has
-    not settled, the whole-frame super-sweeps (K3, ops/ccl_local.py) and,
-    should those hit their cap, pool + pointer-jump rounds.  Compaction
-    then ranks the converged roots and floods the ranks (K4,
-    ops/rank_compact.py), finishing with K5 chunks and K3 the same way, and
-    as a last resort maps each pixel to its root's rank by one gather.
+    sweeps (K5, ops/ccl_sweep.py) up to 24 sweeps, each chunk's "changed"
+    flag deciding whether another runs; then, if the flood has not
+    settled, the whole-frame convergence (K3, ops/ccl_local.py), a 1-sweep
+    K5 launch as its check and, should that find the frame unsettled,
+    pool + pointer-jump rounds.  Compaction then ranks the converged roots
+    and floods the ranks (K4, ops/rank_compact.py), whose "unsettled" flag
+    decides whether K5 chunks and K3 finish the flood the same way, and as
+    a last resort maps each pixel to its root's rank by one gather.
 
 The JAX package runs the slow path on the whole batch when any frame is
 flagged; here it runs on the flagged frames alone.  Every step leaves a
-converged frame as it is, so the labels are the same.
+converged frame as it is, so the labels are the same.  The kernels' flags
+take the place of the JAX package's whole-plane compares (`verify_fixpoint`
+and `any(new != lbl)`), each read by one host sync.
 
 `label_components.slow_path_frames` counts the frames the slow path took.
 """
@@ -31,7 +35,7 @@ from typing import Tuple
 import torch
 
 from .ccl_local import converge_frames
-from .ccl_sweep import min_sweep, sweep_chunk
+from .ccl_sweep import sweep_chunk
 from .rank_compact import RANK_SWEEPS, label_rank_fused, rank_seed_sweep, raster_index
 
 # Sweeps per convergence check, and the sweep budget of a flood before the
@@ -42,7 +46,7 @@ _FLOOD_SWEEPS = 24
 
 def _unsettled(x: torch.Tensor, fg: torch.Tensor, sentinel: float) -> bool:
     """True if another sweep would still change `x`."""
-    return bool((min_sweep(x, fg, sentinel) != x).any())
+    return bool(sweep_chunk(x, fg, 1, sentinel)[1].any())
 
 
 def _flood(
@@ -51,9 +55,9 @@ def _flood(
     """K5 chunks until nothing changes or the sweep budget is spent."""
     it = 0
     while changed and it < _FLOOD_SWEEPS:
-        new = sweep_chunk(x, fg, _CHUNK, sentinel)
-        changed = bool((new != x).any())
-        x, it = new, it + _CHUNK
+        x, ch = sweep_chunk(x, fg, _CHUNK, sentinel)
+        changed = bool(ch.any())
+        it += _CHUNK
     return x, changed
 
 
@@ -85,7 +89,7 @@ def _settle_labels(
     tail = torch.full((T, 1), sentinel, dtype=lbl.dtype, device=lbl.device)
     it = 0
     while changed and it < max_iters:
-        cand = sweep_chunk(lbl, fg, _CHUNK, sentinel).reshape(T, -1)
+        cand = sweep_chunk(lbl, fg, _CHUNK, sentinel)[0].reshape(T, -1)
         jumped = torch.cat([cand, tail], dim=1).gather(1, cand.long())
         new = torch.where(fg, jumped.reshape(lbl.shape), torch.full_like(lbl, sentinel))
         changed = bool((new != lbl).any())
@@ -97,8 +101,8 @@ def _rank_map(
     lbl: torch.Tensor, fg: torch.Tensor, sentinel: float, max_iters: int
 ) -> torch.Tensor:
     """Converged labels -> f32 map of each pixel's root rank (bg sentinel)."""
-    rank = rank_seed_sweep(lbl, RANK_SWEEPS)
-    rank, changed = _flood(rank, fg, sentinel, _unsettled(rank, fg, sentinel))
+    rank, unsettled = rank_seed_sweep(lbl, RANK_SWEEPS)
+    rank, changed = _flood(rank, fg, sentinel, bool(unsettled.any()))
     rank, changed = _converge(rank, fg, sentinel, changed, max_iters)
     if changed:
         # pathological components: rank[root[p]] by one gather

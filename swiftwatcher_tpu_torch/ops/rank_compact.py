@@ -14,15 +14,20 @@ must be recomputed by the caller (ops/ccl.py).
 
 K4, `rank_seed_sweep`, is the compaction half alone, for the slow path:
 converged f32 labels (foreground = label < sentinel) -> seeded ranks ->
-`sweeps` sweeps -> f32 rank map (background = sentinel).
+exactly `sweeps` sweeps -> (f32 rank map with background = sentinel, (N,)
+bool "unsettled" flag: whether one more sweep would change the map).  The
+sweeps are run, not replaced by a gather of each pixel's root rank, which
+on a component deeper than `sweeps` would give the fixpoint instead.
 
 On a CUDA tensor each wrapper launches csrc/rank_compact.cu; on a CPU
-tensor it runs its `*_reference` version.  K2's kernel works on tiles of
-`K2_TILE` pixels, each staged with a halo in shared memory, and ranks by
-root counts per (row, `K2_SEGMENT`-column segment) of a frame.  On a frame
-it does not flag it gathers each pixel's root rank instead of flooding
-the ranks: the flood's result there is that rank.  K4's kernel works on
-whole frames.
+tensor it runs its `*_reference` version.  Both kernels work on tiles of
+`K2_TILE` pixels, each staged with a halo in shared memory
+(csrc/tile_sweep.cuh), and rank by root counts per (row, `K2_SEGMENT`-column
+segment) of a frame and a per-frame scan of them.  On a frame it does not
+flag K2 gathers each pixel's root rank instead of flooding the ranks: the
+flood's result there is that rank.  K4 floods on every tile with
+foreground, with a halo one wider than its sweeps, and ends each tile with
+one probe sweep on the tile's own cells for the flag.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from .ccl_sweep import min_sweep, sweep_chunk_reference
 # components of flood distance <= 12 (single blobs and merged pairs).
 RANK_SWEEPS = 12
 
-# K2's kernel: output tile (rows, columns), the columns of one root count
-# (a warp ballot), and the most sweeps its shared-memory halo allows.
+# K2's and K4's kernels: output tile (rows, columns), the columns of one
+# root count (a warp ballot), and the most sweeps their shared-memory halo
+# allows.
 K2_TILE = (32, 64)
 K2_SEGMENT = 32
 K2_MAX_SWEEPS = 32
@@ -66,9 +72,9 @@ def label_rank_fused_reference(
     N, H, W = fg.shape
     P = float(H * W)
     idx = raster_index(H, W, fg.device)
-    lbl = sweep_chunk_reference(torch.where(fg, idx, torch.full_like(idx, P)), fg, sweeps, P)
+    lbl = sweep_chunk_reference(torch.where(fg, idx, torch.full_like(idx, P)), fg, sweeps, P)[0]
     flag = (min_sweep(lbl, fg, P) != lbl).flatten(1).any(dim=1)
-    rank = sweep_chunk_reference(_seed_ranks(lbl, fg, P), fg, sweeps, P)
+    rank = sweep_chunk_reference(_seed_ranks(lbl, fg, P), fg, sweeps, P)[0]
     labels = torch.where(fg, rank, torch.zeros_like(rank)).to(torch.int32)
     return lbl, labels, flag
 
@@ -104,32 +110,43 @@ def label_rank_fused(
 label_rank_fused.launches = 0
 
 
-def rank_seed_sweep_reference(lbl: torch.Tensor, sweeps: int = RANK_SWEEPS) -> torch.Tensor:
-    """Plain PyTorch version of K4."""
+def rank_seed_sweep_reference(
+    lbl: torch.Tensor, sweeps: int = RANK_SWEEPS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4, same outputs."""
     N, H, W = lbl.shape
     P = float(H * W)
     fg = lbl < P
-    return sweep_chunk_reference(_seed_ranks(lbl, fg, P), fg, sweeps, P)
+    rank = sweep_chunk_reference(_seed_ranks(lbl, fg, P), fg, sweeps, P)[0]
+    return rank, (min_sweep(rank, fg, P) != rank).flatten(1).any(dim=1)
 
 
-def rank_seed_sweep(lbl: torch.Tensor, sweeps: int = RANK_SWEEPS) -> torch.Tensor:
-    """(N, H, W) converged f32 labels -> f32 rank map after `sweeps` sweeps."""
+def rank_seed_sweep(
+    lbl: torch.Tensor, sweeps: int = RANK_SWEEPS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, H, W) converged f32 labels -> (f32 rank map after `sweeps`
+    sweeps, (N,) bool "unsettled")."""
     if lbl.device.type == "cpu":
         return rank_seed_sweep_reference(lbl, sweeps)
     build.check_operand("rank_seed_sweep", lbl, torch.float32)
     N, H, W = lbl.shape
     if H * W >= 1 << 24:
         raise ValueError("rank_seed_sweep: crop too large for exact f32 labels")
+    if not 0 <= sweeps <= K2_MAX_SWEEPS:
+        raise ValueError(f"rank_seed_sweep: sweeps must be 0..{K2_MAX_SWEEPS}, got {sweeps}")
     out = torch.empty_like(lbl)
+    unsettled = torch.empty((N,), dtype=torch.bool, device=lbl.device)
     if N == 0:
-        return out
-    scratch = torch.empty_like(lbl)
+        return out, unsettled
+    # root counts, then root bits, per (frame, row, segment)
+    counts = torch.empty((2, N, H, -(-W // K2_SEGMENT)), dtype=torch.int32, device=lbl.device)
     build.launch(
         "rank_compact", "swt_rank_seed_sweep", lbl.device,
-        lbl.data_ptr(), out.data_ptr(), scratch.data_ptr(), N, H, W, sweeps,
+        lbl.data_ptr(), out.data_ptr(), counts.data_ptr(), unsettled.data_ptr(),
+        N, H, W, sweeps,
     )
     rank_seed_sweep.launches += 1
-    return out
+    return out, unsettled
 
 
 rank_seed_sweep.launches = 0

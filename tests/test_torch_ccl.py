@@ -1,7 +1,8 @@
 """Port vs JAX package: the plain versions of K2-K5 against the Pallas
-kernels in interpret mode, and label_components with its slow path; the
-closed form K3's kernel computes, and K2's kernel schedule emulated on
-tiles, against the plain versions.
+kernels in interpret mode, and label_components with its slow path; K4's
+and K5's flags against a numpy reading of the JAX package's convergence
+checks; the closed form K3's kernel computes, and the tile schedules of
+K2's, K4's and K5's kernels emulated on tiles, against the plain versions.
 
 Tolerance: bit-equal labels, counts, swept labels, rank maps and flagged
 frames."""
@@ -76,8 +77,16 @@ def _slow_path_inputs(fg):
     rank map of the converged labels."""
     return {
         "labels": label_rank_fused_reference(torch.from_numpy(fg))[0].numpy(),
-        "ranks": rank_seed_sweep_reference(torch.from_numpy(_converged(fg))).numpy(),
+        "ranks": rank_seed_sweep_reference(torch.from_numpy(_converged(fg)))[0].numpy(),
     }
+
+
+def _np_unsettled(x, fg, P):
+    """The JAX package's verify_fixpoint (ops/ccl.py) in numpy, per frame:
+    whether one more sweep, fg ? min(x, its 8 neighbours; out-of-frame =
+    sentinel) : sentinel, would change x."""
+    new = np.stack([ndimage.minimum_filter(f, size=3, mode="constant", cval=P) for f in x])
+    return (np.where(fg, new, P) != x).reshape(len(x), -1).any(axis=1)
 
 
 @pytest.mark.parametrize("plane", ["labels", "ranks"])
@@ -86,19 +95,27 @@ def test_k5_plain_vs_pallas_interpret(rng, plane, sweeps):
     fg = _scenes(rng)
     P = float(fg.shape[1] * fg.shape[2])
     x = _slow_path_inputs(fg)[plane]
-    want = jax_sweep_chunk(jnp.asarray(x), jnp.asarray(fg), sweeps, P, interpret=True)
-    got = sweep_chunk_reference(torch.from_numpy(x), torch.from_numpy(fg), sweeps, P)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = np.asarray(jax_sweep_chunk(jnp.asarray(x), jnp.asarray(fg), sweeps, P, interpret=True))
+    got, changed = sweep_chunk_reference(torch.from_numpy(x), torch.from_numpy(fg), sweeps, P)
+    np.testing.assert_array_equal(got.numpy(), want)
     assert not np.array_equal(got.numpy(), x)
+    # the flag is the JAX flood's `any(new != lbl)` per frame, and after one
+    # sweep its verify_fixpoint
+    np.testing.assert_array_equal(changed.numpy(), (want != x).reshape(len(x), -1).any(axis=1))
+    if sweeps == 1:
+        np.testing.assert_array_equal(changed.numpy(), _np_unsettled(x, fg, P))
 
 
 def test_k4_plain_vs_pallas_interpret(rng):
     fg = _scenes(rng)
     P = float(fg.shape[1] * fg.shape[2])
     lbl = _converged(fg)
-    want = jax_rank_seed_sweep(jnp.asarray(lbl), RANK_SWEEPS, P, interpret=True)
-    got = rank_seed_sweep_reference(torch.from_numpy(lbl))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    want = np.asarray(jax_rank_seed_sweep(jnp.asarray(lbl), RANK_SWEEPS, P, interpret=True))
+    got, unsettled = rank_seed_sweep_reference(torch.from_numpy(lbl))
+    np.testing.assert_array_equal(got.numpy(), want)
+    flag = _np_unsettled(want, lbl < P, P)
+    np.testing.assert_array_equal(unsettled.numpy(), flag)
+    assert 0 < flag.sum() < len(flag)
 
 
 @pytest.mark.parametrize("plane", ["labels", "ranks"])
@@ -123,9 +140,11 @@ def test_slow_path_wrappers_take_plain_versions_on_cpu(rng):
     conv = torch.from_numpy(_converged(fg.numpy()))
     wrappers = (sweep_chunk, converge_frames, rank_seed_sweep)
     before = [w.launches for w in wrappers]
-    assert torch.equal(sweep_chunk(lbl, fg, 4, P), sweep_chunk_reference(lbl, fg, 4, P))
+    for a, b in zip(sweep_chunk(lbl, fg, 4, P), sweep_chunk_reference(lbl, fg, 4, P)):
+        assert torch.equal(a, b)
     assert torch.equal(converge_frames(lbl, fg, 8, P), converge_frames_reference(lbl, fg, 8, P))
-    assert torch.equal(rank_seed_sweep(conv), rank_seed_sweep_reference(conv))
+    for a, b in zip(rank_seed_sweep(conv), rank_seed_sweep_reference(conv)):
+        assert torch.equal(a, b)
     assert [w.launches for w in wrappers] == before
     meta = torch.zeros((1, 4, 4), device="meta")
     meta_fg = torch.zeros((1, 4, 4), dtype=torch.bool, device="meta")
@@ -266,11 +285,14 @@ def _staged(plane, fg, y0, x0, SH, SW, fill):
     return a, m
 
 
-def _staged_sweeps(a, m, sweeps, P):
-    """The kernel's sweeps in shared memory: two planes, sweep k updating
-    only the cells at least k inside the staged edge, stopping once a sweep
-    changes none of them.  Returns (result plane, last sweep changed)."""
-    planes = [a, a.clone()]
+def _staged_sweeps(a, m, sweeps, P, clear_bg=False):
+    """The kernels' sweeps in shared memory (csrc/tile_sweep.cuh): two
+    planes, the second with background P; sweep k updates only the
+    foreground cells at least k inside the staged edge, and the sweeps stop
+    once one changes none of them.  `clear_bg` sets the first plane's
+    background to P after the first sweep, before the second writes it.
+    Returns (result plane, last sweep changed)."""
+    planes = [a.clone(), torch.where(m, a, torch.full_like(a, P))]
     moving = True
     SH, SW = a.shape
     for k in range(1, sweeps + 1):
@@ -279,10 +301,34 @@ def _staged_sweeps(a, m, sweeps, P):
         src, dst = planes
         new = min_sweep(src[None], m[None], P)[0]
         region = (slice(k, SH - k), slice(k, SW - k))
-        moving = bool((new[region] != src[region]).any())
-        dst[region] = new[region]
+        upd = m[region]
+        moving = bool((new[region] != src[region])[upd].any())
+        dst[region] = torch.where(upd, new[region], dst[region])
+        if k == 1 and clear_bg and moving and sweeps > 1:
+            src[~m] = P
         planes = [dst, src]
     return planes[0], moving
+
+
+def _segment_ranks(roots):
+    """Each root's 1-based raster rank as the kernels compute it: the
+    exclusive offset of its (row, K2_SEGMENT-column segment) root count
+    plus the roots of the segment up to it."""
+    N, H, W = roots.shape
+    nseg = -(-W // K2_SEGMENT)
+    padded = torch.zeros((N, H, nseg * K2_SEGMENT), dtype=torch.int64)
+    padded[:, :, :W] = roots.long()
+    counts = padded.reshape(N, H * nseg, K2_SEGMENT).sum(2)
+    offsets = (torch.cumsum(counts, 1) - counts).reshape(N, H, nseg)
+    within = torch.cumsum(padded.reshape(N, H, nseg, K2_SEGMENT), 3).reshape(N, H, -1)[:, :, :W]
+    return offsets.repeat_interleave(K2_SEGMENT, 2)[:, :, :W] + within
+
+
+def _tiles(H, W, tile):
+    """(own-cell slices, top row, left column) of each tile of a frame."""
+    TH, TW = tile
+    return [((slice(ty0, min(ty0 + TH, H)), slice(tx0, min(tx0 + TW, W))), ty0, tx0)
+            for ty0 in range(0, H, TH) for tx0 in range(0, W, TW)]
 
 
 def _tiled_k2(fg, tile, sweeps):
@@ -313,14 +359,7 @@ def _tiled_k2(fg, tile, sweeps):
                 flag[n] |= bool((min_sweep(a[None], m[None], P)[0][own] != a[own]).any())
             lbl[n, ty0 : ty0 + th, tx0 : tx0 + tw] = a[own]
             roots[n, ty0 : ty0 + th, tx0 : tx0 + tw] = m[own] & (a[own] == idx[ty0 : ty0 + th, tx0 : tx0 + tw])
-    # raster offsets of the (row, segment) root counts, and each root's rank
-    nseg = -(-W // K2_SEGMENT)
-    padded = torch.zeros((N, H, nseg * K2_SEGMENT), dtype=torch.int64)
-    padded[:, :, :W] = roots.long()
-    counts = padded.reshape(N, H * nseg, K2_SEGMENT).sum(2)
-    offsets = (torch.cumsum(counts, 1) - counts).reshape(N, H, nseg)
-    within = torch.cumsum(padded.reshape(N, H, nseg, K2_SEGMENT), 3).reshape(N, H, -1)[:, :, :W]
-    rank = offsets.repeat_interleave(K2_SEGMENT, 2)[:, :, :W] + within  # at roots
+    rank = _segment_ranks(roots)  # at roots
     labels = torch.zeros((N, H, W), dtype=torch.int32)
     for n in range(N):
         if not flag[n]:
@@ -349,5 +388,100 @@ def test_k2_tiled_schedule_equals_plain(rng, tile):
     got = _tiled_k2(fg, tile, RANK_SWEEPS)
     want = label_rank_fused_reference(fg, RANK_SWEEPS)
     assert 0 < int(want[2].sum()) < fg.shape[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _tiled_k4(lbl, tile, sweeps):
+    """K4's kernel schedule on (TH, TW) tiles: roots per (row, segment) of
+    each tile (a tile without foreground records none), their raster
+    offsets, then per tile with foreground the rank flood staged with a
+    halo of sweeps + 1 from the staged roots, and the probe on the tile's
+    own cells OR'd into the frame's flag; a tile without foreground writes
+    the sentinel."""
+    N, H, W = lbl.shape
+    TH, TW = tile
+    P = float(H * W)
+    fg = lbl < P
+    roots = lbl == torch.arange(H * W, dtype=torch.float32).reshape(H, W)
+    seeds = torch.where(roots, _segment_ranks(roots).float(), torch.full_like(lbl, P))
+    out = torch.full_like(lbl, P)
+    flag = torch.zeros(N, dtype=torch.bool)
+    h = sweeps + 1
+    for n in range(N):
+        for cells, ty0, tx0 in _tiles(H, W, tile):
+            if not fg[n][cells].any():
+                continue
+            a, m = _staged(seeds[n], fg[n], ty0 - h, tx0 - h, TH + 2 * h, TW + 2 * h, P)
+            a, moving = _staged_sweeps(a, m, sweeps, P)
+            th, tw = out[n][cells].shape
+            mine = (slice(h, h + th), slice(h, h + tw))
+            out[n][cells] = a[mine]
+            if moving:
+                flag[n] |= bool((min_sweep(a[None], m[None], P)[0][mine] != a[mine]).any())
+    return out, flag
+
+
+@pytest.mark.parametrize("tile", [K2_TILE, (20, 48), (13, 32)])
+@pytest.mark.parametrize("sweeps", [0, 1, RANK_SWEEPS])
+def test_k4_tiled_schedule_equals_plain(rng, tile, sweeps):
+    """K4's tile decomposition gives the plain version's rank map and
+    unsettled flags bit for bit, on components shallower and deeper than
+    its sweeps."""
+    lbl = torch.from_numpy(_converged(_scenes(rng)))
+    got = _tiled_k4(lbl, tile, sweeps)
+    want = rank_seed_sweep_reference(lbl, sweeps)
+    if sweeps == RANK_SWEEPS:
+        assert 0 < int(want[1].sum()) < lbl.shape[0]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _tiled_k5(x, fg, tile, sweeps, P):
+    """K5's kernel schedule on (TH, TW) tiles: a tile without foreground
+    writes the sentinel and flags its frame if any of its input cells held
+    something else; any other tile stages the plane with a halo of `sweeps`
+    (its background reset after the first sweep where it held values other
+    than the sentinel), sweeps, writes its cells and flags its frame if any
+    differs from its input."""
+    N, H, W = x.shape
+    TH, TW = tile
+    out = torch.full_like(x, P)
+    changed = torch.zeros(N, dtype=torch.bool)
+    h = sweeps
+    for n in range(N):
+        for cells, ty0, tx0 in _tiles(H, W, tile):
+            if not fg[n][cells].any():
+                changed[n] |= bool((x[n][cells] != P).any())
+                continue
+            a, m = _staged(x[n], fg[n], ty0 - h, tx0 - h, TH + 2 * h, TW + 2 * h, P)
+            dirty = bool((~m & (a != P)).any())
+            a = _staged_sweeps(a, m, sweeps, P, clear_bg=dirty)[0]
+            th, tw = out[n][cells].shape
+            mine = a[h : h + th, h : h + tw]
+            out[n][cells] = mine
+            changed[n] |= bool((mine != x[n][cells]).any())
+    return out, changed
+
+
+@pytest.mark.parametrize("tile", [K2_TILE, (20, 48), (13, 32)])
+@pytest.mark.parametrize("sweeps", [1, 4, 8])
+@pytest.mark.parametrize("plane", ["labels", "ranks"])
+@pytest.mark.parametrize("background", ["sentinel", "below"])
+def test_k5_tiled_schedule_equals_plain(rng, tile, sweeps, plane, background):
+    """K5's tile decomposition gives the plain version's swept plane and
+    changed flags bit for bit, also where the background holds values below
+    the sentinel (the first sweep reads them) and on frames a sweep leaves
+    as they are."""
+    fg_np = _scenes(rng)
+    P = float(fg_np.shape[1] * fg_np.shape[2])
+    x = _slow_path_inputs(fg_np)[plane]
+    if background == "below":
+        x = np.where(fg_np, x, rng.integers(0, int(P), size=fg_np.shape)).astype(np.float32)
+    x, fg = torch.from_numpy(x), torch.from_numpy(fg_np)
+    got = _tiled_k5(x, fg, tile, sweeps, P)
+    want = sweep_chunk_reference(x, fg, sweeps, P)
+    if background == "sentinel":
+        assert 0 < int(want[1].sum()) < x.shape[0]
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -63,7 +63,9 @@ def _imported_tops(path):
     return {n.split(".")[0] for n in names}
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_profile.py"])
+@pytest.mark.parametrize(
+    "script", ["chip_smoke.py", "tools/torch_profile.py", "tools/time_ccl_slow.py"]
+)
 def test_card_scripts_import_the_port_only(script):
     """The port keeps its own copies of the host modules it needs."""
     tops = _imported_tops(ROOT / script)
