@@ -10,7 +10,11 @@ path (`run_video`) end to end:
   1. the card's name and power limit (nvidia-smi);
   2. kernel build time;
   3. K1 (fused motion filter) vs the plain chain at (336, 216, 432), on RPCA
-     motion of the 1080p scene plus tile-boundary cases: bit-equal;
+     motion of the 1080p scene plus block-boundary and halo-edge cases, and
+     on other shapes and settings (ragged blocks, radii 1-4, a frame wider
+     than a block, 0/255 checkerboards, lone pixels under flat weights):
+     bit-equal; its hot-block count and the share of their pixels the
+     window-max skip leaves out;
   4. K2 (fused CCL) vs its plain version: swept labels, compact labels and
      flags bit-equal, on that motion plus a snake and a dense speckle, on
      all-foreground and empty frames and shapes that are not a multiple of
@@ -36,7 +40,8 @@ path (`run_video`) end to end:
   7. K6 (fused IALM front) vs its plain version at (16, 21, 93312) on the
      state of a real cold-start iteration of one batch of that scene (u8
      X, bf16 A and Y, as the solver holds them), the same state widened to
-     f32, and ragged shapes: E and M bit-equal, G within 1e-4 max|G|;
+     f32, and ragged shapes (T 1 to 32, P 1 to 93312): E and M bit-equal, G
+     within 1e-4 max|G|, and bit-identical in two calls on the main state;
   8. cold-start RPCA on that batch on the card with K6 vs with the plain
      front: iterations within 1, motion within 2 u8; the warm solve beside;
   9. run_video over the 1008 frames with rpca_warm_basis=False: every
@@ -149,30 +154,35 @@ def alternate_ms(torch, plain, kernel, reps: int = 10, what: str = "the kernel")
 
 
 def boundary_motion(np, H: int, W: int) -> "np.ndarray":
-    """Frames that probe K1's tile edges and its early-out: empty, all at
-    the threshold, all above it, and lone bright pixels on sub-threshold
-    noise at and around every 32 x 64 tile seam and the frame border."""
+    """Frames that probe K1's block edges and its early-outs: empty, all at
+    the threshold, all above it, and 3 x 3 bright blobs on sub-threshold
+    noise at and around every 24- and 32-row band seam and 64-column seam
+    (K1's blocks are 24 x 128, an earlier design's 32 x 64), the frame
+    border, and the halo edges of each block (radius + 2 = 5 rows or
+    columns outside it); every other frame's blobs are 255 (|d| = 255
+    against the noise)."""
     rng = np.random.default_rng(7)
     frames = [
         np.zeros((H, W), np.uint8),
         np.full((H, W), 15, np.uint8),
         np.full((H, W), 16, np.uint8),
     ]
-    rows = [r for r in (0, 1, 2, 30, 31, 32, 33, 34, 63, 64, 65, H - 3, H - 2, H - 1)
-            if r < H]
-    cols = [c for c in (0, 1, 2, 61, 62, 63, 64, 65, 66, 127, 128, W - 3, W - 2, W - 1)
-            if c < W]
+    near = (-5, -3, -2, -1, 0, 1, 2, 4)
+    rows = sorted({s + d for s in (*range(0, H + 1, 24), *range(0, H + 1, 32))
+                   for d in near if 0 <= s + d < H} | {H - 3, H - 1})
+    cols = sorted({s + d for s in range(0, W + 1, 64) for d in near if 0 <= s + d < W}
+                  | {W - 3, W - 1})
     for i in range(0, len(rows), 2):
         m = (rng.random((H, W)) * 14).astype(np.uint8)
         for r in rows[i : i + 2]:
             for c in cols:
-                m[r, c] = 120
+                m[r : r + 3, c : c + 3] = 255 if i % 4 else 120
         frames.append(m)
     return np.stack(frames)
 
 
-# K1 shapes and settings beyond the main path's: ragged tiles, frames
-# smaller than a tile, other bilateral radii and thresholds, and weights
+# K1 shapes and settings beyond the main path's: ragged blocks, frames
+# smaller than a block, other bilateral radii and thresholds, and weights
 # of exactly 1 and 0.5 that make exact .5 rounding ties (half to even).
 K1_EXTRA = (
     ((3, 60, 90), {"bilateral_d": 3, "bilateral_sigma_color": 1e7,
@@ -183,7 +193,30 @@ K1_EXTRA = (
     ((3, 100, 7), {}),
     ((3, 60, 90), {"bilateral_d": 5}),
     ((3, 60, 90), {"bilateral_d": 9, "motion_threshold": 30}),
+    ((2, 40, 1100), {}),
 )
+
+
+def k1_cases(np, rng):
+    """(what, frames, config overrides) for K1 beyond the main path: blob
+    motion at K1_EXTRA's shapes and settings, 0/255 checkerboards (|d| =
+    255 at every tap), and lone 255 pixels under flat colour and space
+    weights, where the bilateral lifts every pixel of the window's edge
+    above the threshold (a window-max skip one row or column short fails
+    there)."""
+    cases = [(f"{shape} {ov or 'default'}", blob_motion(np, rng, shape), ov)
+             for shape, ov in K1_EXTRA]
+    yy, xx = np.indices((70, 300))
+    checker = np.stack([(yy + xx) % 2, (yy // 3 + xx // 5) % 2]).astype(np.uint8) * 255
+    cases.append(("0/255 checkerboards (70, 300)", checker, {}))
+    lone = np.zeros((2, 70, 300), np.uint8)
+    lone[:, rng.integers(0, 70, 40), rng.integers(0, 300, 40)] = 255
+    cases.append(("lone 255 pixels, flat weights", lone,
+                  {"bilateral_sigma_color": 1e7, "bilateral_sigma_space": 10.0,
+                   "motion_threshold": 5}))
+    return cases
+
+
 # K2 shapes beyond the main path's, with a foreground density each.
 K2_EXTRA = (((4, 47, 121), 0.3), ((2, 1, 500), 0.5), ((2, 300, 1), 0.5),
             ((3, 64, 64), 0.7), ((2, 216, 432), 1.0), ((2, 216, 432), 0.0),
@@ -240,23 +273,36 @@ def bound(n_bytes: float, n_ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def k1_bound(torch, motion, cfg):
-    """K1 moves the u8 frames in and out once; its arithmetic is the
-    bilateral (29 taps of ~8 operations) on the tile +-2 and the two 3 x 3
-    passes of the opening, on the 32 x 64 tiles whose staged input (halo
-    of radius + 2) holds a pixel above the threshold; the rest skip."""
+def k1_work(torch, motion, cfg):
+    """What K1's design does on `motion`: (bound, hot blocks, blocks, share
+    of the hot blocks' pixels that the window-max skip leaves out).
+
+    A block (24 x 128 output pixels) is hot when its input with a halo of
+    radius + 2 holds a pixel above the threshold; in a hot block the tap
+    loop runs on the pixels whose (2r+1)^2 window does.  K1 moves the u8
+    frames in and out once; its arithmetic is the bilateral (29 taps of ~8
+    operations at radius 3) on those pixels and ~24 byte operations a
+    pixel of a hot block (window max, opening)."""
     import torch.nn.functional as F
 
+    from swiftwatcher_tpu_torch.ops.filtering import bilateral_constants
+    from swiftwatcher_tpu_torch.ops.fused_motion import BLOCK
+
     N, H, W = motion.shape
-    halo = cfg.bilateral_d // 2 + 2
-    hot = F.max_pool2d((motion > cfg.motion_threshold).float()[:, None],
-                       2 * halo + 1, stride=1, padding=halo)[:, 0]
-    ph, pw = -H % 32, -W % 64
-    hot = F.pad(hot, (0, pw, 0, ph)).reshape(N, (H + ph) // 32, 32, (W + pw) // 64, 64)
-    tiles = int((hot.amax(dim=(2, 4)) > 0).sum())
-    taps = 29
-    per_tile = (36 * 68) * taps * 8 + (34 * 66) * 8 + (32 * 64) * 8
-    return bound(2 * motion.numel(), tiles * per_tile), tiles
+    radius, space, _ = bilateral_constants(
+        cfg.bilateral_d, cfg.bilateral_sigma_color, cfg.bilateral_sigma_space)
+    above = (motion > cfg.motion_threshold).float()[:, None]
+    near = F.max_pool2d(above, 2 * radius + 5, stride=1, padding=radius + 2)[:, 0]
+    window = F.max_pool2d(above, 2 * radius + 1, stride=1, padding=radius)[:, 0]
+    (bh, bw), (ph, pw) = BLOCK, (-H % BLOCK[0], -W % BLOCK[1])
+    blocks = F.pad(near, (0, pw, 0, ph)).reshape(N, (H + ph) // bh, bh, (W + pw) // bw, bw)
+    hot = blocks.amax(dim=(2, 4)) > 0
+    in_hot = hot.repeat_interleave(bh, 1).repeat_interleave(bw, 2)[:, :H, :W]
+    hot_px = int(in_hot.sum())
+    taps_px = int((window.bool() & in_hot).sum())
+    skipped = 1.0 - taps_px / hot_px if hot_px else 0.0
+    n_ops = taps_px * len(space) * 8 + hot_px * 24
+    return bound(2 * motion.numel(), n_ops), int(hot.sum()), hot.numel(), skipped
 
 
 def k6_bytes_ops(X, A, Y):
@@ -267,6 +313,34 @@ def k6_bytes_ops(X, A, Y):
     n_bytes = (n * (X.element_size() + A.element_size() + Y.element_size() + 8)
                + B * T * T * 4 + B * 4)
     return n_bytes, 10 * n + 2 * B * T * T * P
+
+
+def k6_state(torch, gray, cfg):
+    """K6's operands (X, A, Y, inv_mu, lmbda) on the card after 3 plain
+    cold-start IALM iterations of the (B, T, H, W) u8 batch `gray`, as the
+    solver holds them (u8 X, bf16 A and Y)."""
+    import dataclasses
+
+    from swiftwatcher_tpu_torch.ops import rpca as rpca_mod
+
+    B, T, H, W = gray.shape
+    X = gray.reshape(B, T, H * W).to(torch.float32)
+    kw = rpca_mod.ialm_gates_and_kwargs(
+        dataclasses.replace(cfg, rpca_warm_basis=False), torch.float32, X.device)
+    check(kw["fused_front"] and not kw["warm_basis"], "the cold gate did not pick K6 on the card")
+    calls = []
+    plain_front = rpca_mod.ialm_front_reference
+
+    def recording_front(*args):
+        calls.append(args)
+        return plain_front(*args)
+
+    rpca_mod.ialm_front_reference = recording_front
+    try:
+        rpca_mod.ialm_rpca_batched(X, **dict(kw, fused_front=False, fixed_iters=4))
+    finally:
+        rpca_mod.ialm_front_reference = plain_front
+    return calls[-1]
 
 
 def run() -> None:
@@ -298,13 +372,8 @@ def run() -> None:
         rank_seed_sweep,
         rank_seed_sweep_reference,
     )
-    from swiftwatcher_tpu_torch.ops import rpca as rpca_mod
     from swiftwatcher_tpu_torch.ops.ialm_front import ialm_front, ialm_front_reference
-    from swiftwatcher_tpu_torch.ops.rpca import (
-        ialm_gates_and_kwargs,
-        ialm_rpca_batched,
-        rpca_motion_window_batched,
-    )
+    from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched
     from swiftwatcher_tpu_torch.pipeline.runner import run_video
 
     cfg = DEFAULT_CONFIG
@@ -338,6 +407,10 @@ def run() -> None:
     print(f"phase 3 input: motion {tuple(motion.shape)}, RPCA iters "
           f"{iters.min().item()}..{iters.max().item()}, "
           f"{int((motion > cfg.motion_threshold).sum())} px above threshold", flush=True)
+    k1_bound, hot_blocks, n_blocks, skipped = k1_work(torch, motion, cfg)
+    print(f"phase 3 K1 schedule on {tuple(motion.shape)}: {hot_blocks} of {n_blocks} "
+          f"blocks hot; the window-max skip leaves out {100 * skipped:.2f}% of their "
+          f"pixels", flush=True)
     k1_in = torch.cat([motion, torch.from_numpy(boundary_motion(np, H, W)).to(dev)])
     got = fused_motion_filter(k1_in, cfg)
     want = fused_motion_filter_reference(k1_in, cfg)
@@ -348,22 +421,25 @@ def run() -> None:
           f"{k1_bad} px differ", flush=True)
     check(k1_err <= TOL, "K1 disagrees with the plain chain")
     check(int((got[: B * T] > 0).sum()) > 0, "K1 output holds no motion")
+    check(int((got[B * T + 3 :] > 0).sum()) > 0, "K1 boundary frames hold no motion")
     rng = np.random.default_rng(11)
-    for shape, overrides in K1_EXTRA:
+    extra = k1_cases(np, rng)
+    for what, m, overrides in extra:
         c = dataclasses.replace(cfg, **overrides)
-        m = torch.from_numpy(blob_motion(np, rng, shape)).to(dev)
-        err = int((fused_motion_filter(m, c).int()
-                   - fused_motion_filter_reference(m, c).int()).abs().max())
-        check(err <= TOL, f"K1 disagrees with the plain chain at {shape} {overrides}")
-    print(f"phase 3 K1 vs plain on {len(K1_EXTRA)} other shapes/settings: bit-equal",
-          flush=True)
+        m = torch.from_numpy(m).to(dev)
+        want = fused_motion_filter_reference(m, c)
+        err = int((fused_motion_filter(m, c).int() - want.int()).abs().max())
+        check(err <= TOL, f"K1 disagrees with the plain chain on {what}")
+    print(f"phase 3 K1 vs plain on {len(extra)} other inputs/settings: bit-equal "
+          f"({'; '.join(w for w, _, _ in extra)})", flush=True)
     k1_ms, k1_plain_ms = alternate_ms(
         torch,
         lambda: fused_motion_filter_reference(motion, cfg),
         lambda: fused_motion_filter(motion, cfg),
     )
     print(f"phase 3 K1 time at {tuple(motion.shape)}: kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.4f} ms [{card}]", flush=True)
+          f"plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) "
+          f"[{card}]", flush=True)
 
     # 4. K2 on the filtered motion plus frames that force the slow path
     fg_main = (fused_motion_filter(motion, cfg) > 0).contiguous()
@@ -591,22 +667,7 @@ def run() -> None:
 
     # 7. K6 on the state of a real cold-start iteration of one batch
     cold = dataclasses.replace(cfg, rpca_warm_basis=False)
-    X = gray_dev.reshape(B, T, H * W).to(torch.float32)
-    kw = ialm_gates_and_kwargs(cold, torch.float32, X.device)
-    check(kw["fused_front"] and not kw["warm_basis"], "the cold gate did not pick K6 on the card")
-    calls = []
-    plain_front = rpca_mod.ialm_front_reference
-
-    def recording_front(*args):
-        calls.append(args)
-        return plain_front(*args)
-
-    rpca_mod.ialm_front_reference = recording_front
-    try:
-        ialm_rpca_batched(X, **dict(kw, fused_front=False, fixed_iters=4))
-    finally:
-        rpca_mod.ialm_front_reference = plain_front
-    Xs, As, Ys, inv_mu, lmbda = calls[-1]       # after 3 plain iterations
+    Xs, As, Ys, inv_mu, lmbda = k6_state(torch, gray_dev, cfg)
     print(f"phase 7 K6 input: X {tuple(Xs.shape)} {Xs.dtype}, A/Y {As.dtype}, "
           f"inv_mu {inv_mu.min().item():.4g}..{inv_mu.max().item():.4g}", flush=True)
 
@@ -624,24 +685,28 @@ def run() -> None:
 
     main_args = (Xs, As, Ys, inv_mu, lmbda)
     e_err, m_err, k6_err, g_max = k6_compare(main_args, "the main path's state")
+    check(torch.equal(ialm_front(*main_args)[2], ialm_front(*main_args)[2]),
+          "K6's G differs between two calls on the same state")
     print(f"phase 7 K6 vs plain at {tuple(Xs.shape)}: E max |diff| {e_err}, M max |diff| "
-          f"{m_err}, G max |diff| {k6_err} (max|G| {g_max:.6g}, limit {G_RTOL} max|G|)",
-          flush=True)
+          f"{m_err}, G max |diff| {k6_err} (max|G| {g_max:.6g}, limit {G_RTOL} max|G|); "
+          f"G bit-identical in two calls", flush=True)
     _, m0, g0 = ialm_front_reference(*main_args)
     g64 = m0.double() @ m0.double().transpose(-1, -2)
     print(f"phase 7 G max |diff| from the f64 Gram of the same M: K6 "
           f"{f32_err(ialm_front(*main_args)[2], g64)}, plain {f32_err(g0, g64)}", flush=True)
     f32_args = (Xs.float(), As.float(), Ys.float(), inv_mu, lmbda)
     k6_compare(f32_args, "the f32 state")
-    for shape in ((1, 21, 1), (3, 21, 1000), (2, 21, 4099), (1, 21, 93312), (4, 7, 777)):
+    k6_shapes = ((1, 21, 1), (3, 21, 1000), (2, 21, 4099), (1, 21, 93312), (4, 7, 777),
+                 (2, 32, 5000), (2, 1, 300))
+    for shape in k6_shapes:
         for xd, sd in ((torch.uint8, torch.bfloat16), (torch.float32, torch.float32)):
             Xr = torch.from_numpy(rng.integers(0, 256, size=shape)).to(dev, xd)
             Ar = (torch.from_numpy(rng.standard_normal(shape) * 60)).to(dev, sd)
             Yr = (torch.from_numpy(rng.standard_normal(shape) * 1e-3)).to(dev, sd)
             im = torch.from_numpy(rng.uniform(0.5, 200.0, shape[0])).to(dev, torch.float32)
             k6_compare((Xr, Ar, Yr, im, 0.01), f"{shape} {xd} {sd}")
-    print("phase 7 K6 vs plain on 10 ragged shapes/dtypes: E, M bit-equal, G within "
-          "tolerance", flush=True)
+    print(f"phase 7 K6 vs plain on {2 * len(k6_shapes)} ragged shapes/dtypes: E, M "
+          f"bit-equal, G within tolerance", flush=True)
     k6_ms, k6_plain_ms = alternate_ms(
         torch, lambda: ialm_front_reference(*main_args), lambda: ialm_front(*main_args)
     )
@@ -724,7 +789,7 @@ def run() -> None:
     # every kernel's bound at the inputs timed above
     hw = H * W
     bounds = {
-        "fused_motion_filter": k1_bound(torch, motion, cfg)[0],
+        "fused_motion_filter": k1_bound,
         "label_rank_fused": bound(fg_main.numel() * 9 + fg_main.shape[0],
                                   fg_main.numel() * (25 * 4 + 2)),
         "sweep_chunk": bound(n_close * (hw * 9 + 1), n_close * hw * 4 * 8),

@@ -70,6 +70,11 @@ _SIGNATURES = {
             _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
             _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
         ],
+        # the same launch without the Gram, for timing K6's parts
+        "swt_ialm_front_stream": [
+            _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,
+            _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
+        ],
     },
 }
 

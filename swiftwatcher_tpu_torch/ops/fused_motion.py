@@ -4,6 +4,11 @@ Counterpart of swiftwatcher_tpu/ops/pallas/fused_motion.py.  On a CUDA
 tensor `fused_motion_filter` launches the hand-written kernel
 csrc/fused_motion.cu; on a CPU tensor it runs the plain PyTorch chain
 (`fused_motion_filter_reference`), which the kernel is held against.
+
+The kernel works on blocks of `BLOCK` output pixels (rows, columns), each
+staged with a halo of radius + 2 rows and `MARGIN` columns; it skips a
+block whose staged input is all at or below the threshold, and inside the
+others the pixels whose (2r+1)^2 input window is (both write zeros).
 """
 
 from __future__ import annotations
@@ -15,6 +20,10 @@ import torch
 from .. import build
 from ..config import DEFAULT_CONFIG, PipelineConfig
 from .filtering import bilateral_constants, motion_postfilter
+
+BLOCK = (24, 128)   # output rows, columns of one block of the kernel
+MARGIN = 16         # staged columns on each side of a block
+MAX_RADIUS = 8      # bilateral_d // 2 the kernel takes
 
 
 def fused_motion_filter_reference(
@@ -39,6 +48,10 @@ def fused_motion_filter(
     radius, space, gc = bilateral_constants(
         cfg.bilateral_d, cfg.bilateral_sigma_color, cfg.bilateral_sigma_space
     )
+    if radius > MAX_RADIUS:
+        raise ValueError(f"fused_motion_filter: bilateral radius {radius} > {MAX_RADIUS}")
+    if not 0 <= cfg.motion_threshold <= 255:
+        raise ValueError(f"fused_motion_filter: threshold {cfg.motion_threshold} outside 0..255")
     if H <= radius or W <= radius:
         raise ValueError(f"fused_motion_filter: frame {H}x{W} below the reflect pad")
     out = torch.empty_like(motion)

@@ -13,7 +13,8 @@ float) and are widened to inv_mu's dtype first.  On a CUDA tensor
 `ialm_front` launches csrc/ialm_front.cu (f32 only), whose E and M are
 bit-equal to the plain version and whose G differs by summation order; on
 a CPU tensor it runs `ialm_front_reference`.  Unlike the TPU kernel it takes
-any P: no zero padding.
+any P: no zero padding.  The kernel's Gram is register-blocked over 4 x 4
+blocks of row pairs (`gram_blocks`).
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ import torch
 
 from .. import build
 
-CHUNK = 256   # pixel columns per chunk of the kernel
+KERNEL_THREADS = 256
+CHUNK = 2 * KERNEL_THREADS   # pixel columns per chunk of the kernel (2 a thread)
 MAX_T = 32
-# Blocks in flight per SM that the kernel's grid aims for.
-_BLOCKS_PER_SM = 8
+# Blocks per SM that the kernel's grid aims for: as many as reside at
+# T = 21 (the M tile takes about 49 KB of shared memory).
+_BLOCKS_PER_SM = 4
 
 
 def front_chain(
@@ -50,6 +53,17 @@ def ialm_front_reference(
     """Plain PyTorch version of K6: (E, M, G)."""
     E, M = front_chain(X, A, Y, inv_mu, lmbda)
     return E, M, M @ M.transpose(-1, -2)
+
+
+def gram_blocks(T: int):
+    """The kernel's Gram schedule for T rows: T padded with zero rows to a
+    multiple of 4, and the lower-triangle 4 x 4 blocks (I, J), J <= I, in
+    the order the kernel's threads take them (thread t takes block
+    t // slices, slice t % slices of the chunk's float4 column groups).
+    Returns (padded T, blocks, slices)."""
+    tp = -(-T // 4) * 4
+    blocks = [(i, j) for i in range(tp // 4) for j in range(i + 1)]
+    return tp, blocks, KERNEL_THREADS // len(blocks)
 
 
 def _check(X, A, Y, inv_mu) -> None:
@@ -78,6 +92,21 @@ def ialm_front(
     """(B, T, P) X, A, Y + (B,) inv_mu -> E, M (B, T, P) and G (B, T, T)."""
     if X.device.type == "cpu":
         return ialm_front_reference(X, A, Y, inv_mu, lmbda)
+    out = launch_front("swt_ialm_front", X, A, Y, inv_mu, lmbda)
+    ialm_front.launches += 1
+    return out
+
+
+ialm_front.launches = 0
+
+
+def launch_front(
+    entry: str, X: torch.Tensor, A: torch.Tensor, Y: torch.Tensor, inv_mu: torch.Tensor,
+    lmbda: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of csrc/ialm_front.cu's `entry` on CUDA operands: the
+    kernel (swt_ialm_front), or the same launch without the Gram
+    (swt_ialm_front_stream: G is left unwritten), which times K6's parts."""
     _check(X, A, Y, inv_mu)
     B, T, P = X.shape
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
@@ -88,14 +117,10 @@ def ialm_front(
     partial = torch.empty((B, n_blocks, T * (T + 1) // 2), dtype=torch.float32,
                           device=X.device)
     build.launch(
-        "ialm_front", "swt_ialm_front", X.device,
+        "ialm_front", entry, X.device,
         X.data_ptr(), A.data_ptr(), Y.data_ptr(), inv_mu.data_ptr(),
         E.data_ptr(), M.data_ptr(), partial.data_ptr(), G.data_ptr(),
         B, T, P, n_blocks, int(X.dtype == torch.uint8), int(A.dtype == torch.bfloat16),
         float(lmbda),
     )
-    ialm_front.launches += 1
     return E, M, G
-
-
-ialm_front.launches = 0

@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""Time the CCL kernels (K2, K3, K4, K5) of trees of the port on the same
-inputs, on one GPU.
+"""Time the port's kernels (K1-K6) of trees of the port on the same inputs,
+on one GPU.
 
-    python3 tools/time_ccl_slow.py [--trees DIR ...] [--reps 20]
+    python3 tools/time_kernels.py [--trees DIR ...] [--reps 20] [--kernels NAME ...]
 
 Each DIR is the root of a checkout of this repository (default: this one),
 for example an earlier commit unpacked with `git archive` into a
 git-ignored directory.  Its `swiftwatcher_tpu_torch` is imported under a
 name of its own and builds its kernels into its own `build/kernels/`.
 
-The inputs are chip_smoke.py's close-pass frames: one batch (16 x 21
-frames) of the 1080p bench scene with a dark 64 x 64 block crossing the
-crop, through this tree's RPCA and K1: K2 on the batch's foreground and
-on as many frames of dense speckle (chip_smoke.DENSE_DENSITY); K3-K5 on
-the frames K2 flags, with the planes the slow path hands each: K5 (4
-sweeps) K2's swept labels, K3 the labels after K5's 24-sweep budget, K4
-the converged labels.  Every tree's outputs are checked bit-equal to this
-tree's plain versions.
+The inputs are chip_smoke.py's: one batch (16 x 21 frames) of the 1080p
+bench scene with a dark 64 x 64 block crossing the crop, through this
+tree's RPCA.  K1 runs on the batch's motion (336, 216, 432), and "K1 zeros"
+on an all-zero batch of that shape, where every block takes the quiet path
+(the streaming floor).  K6 runs at (16, 21, 93312) on the state after 3
+plain cold-start iterations of the batch (chip_smoke.k6_state: u8 X, bf16
+A and Y).  K2 runs on the batch's foreground after K1, and on as many
+frames of dense speckle (chip_smoke.DENSE_DENSITY).  K3-K5 run on the
+frames K2 flags, with the planes the slow path hands each: K5 (4 sweeps)
+K2's swept labels, K3 the labels after K5's 24-sweep budget, K4 the
+converged labels.  Every tree's outputs are checked against this tree's
+plain versions: bit-equal, except K6's G, within 1e-4 of max|G|.
 
 Each kernel of each tree is timed in two ways, in turns over the trees
 (A, B, B, A for two): queued behind a spin (chip_smoke.time_ms, device
-time) and back to back without one (the timing of earlier revisions of
-chip_smoke.py, which includes the host's dispatch of each call when that
-takes longer than the kernel).  Prints the card's name and power limit, a
-line per kernel, tree and way, and last one JSON object of all the times.
-Imports the port only (no JAX).  Needs a CUDA device.
+time) and back to back without one (which includes the host's dispatch of
+each call when that takes longer than the kernel).  This tree's K6 is also
+timed in parts: "K6 stream" is the same launch without the Gram (E and M
+only), and "K6 grid x2" the kernel with twice the blocks per SM in its
+grid.  Prints the card's name and power limit, a line per kernel, tree and
+way, and last one JSON object of all the times.  Imports the port only (no
+JAX).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,14 +56,17 @@ from swiftwatcher_tpu_torch.io.synthetic import make_video  # noqa: E402
 from swiftwatcher_tpu_torch.ops.ccl_local import converge_frames_reference  # noqa: E402
 from swiftwatcher_tpu_torch.ops.ccl_sweep import sweep_chunk_reference  # noqa: E402
 from swiftwatcher_tpu_torch.ops.color import bgr_to_gray_host  # noqa: E402
-from swiftwatcher_tpu_torch.ops.fused_motion import fused_motion_filter  # noqa: E402
+from swiftwatcher_tpu_torch.ops.fused_motion import fused_motion_filter_reference  # noqa: E402
+from swiftwatcher_tpu_torch.ops.ialm_front import ialm_front_reference  # noqa: E402
 from swiftwatcher_tpu_torch.ops.rank_compact import (  # noqa: E402
     RANK_SWEEPS,
-    label_rank_fused,
     label_rank_fused_reference,
     rank_seed_sweep_reference,
 )
 from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched  # noqa: E402
+
+KERNELS = ("K1", "K1 zeros", "K6", "K5", "K4", "K3", "K2", "K2 dense")
+PARTS = ("K6 stream", "K6 grid x2")
 
 
 def back_to_back_ms(torch, fn, reps: int = 10) -> float:
@@ -95,10 +104,19 @@ def outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
 
-def ccl_inputs(dev, cfg):
-    """(the batch's foreground, dense speckle of its shape, K5's, K3's and
-    K4's input planes and foreground on the frames K2 flags, sentinel) for
-    one batch of the close-pass scene."""
+def agrees(name, got, want) -> bool:
+    """Bit-equal outputs; K6's G (its third output) within
+    chip_smoke.G_RTOL of max|G|."""
+    if name.startswith("K6"):
+        (e, m, g), (e0, m0, g0) = got, want
+        return (torch.equal(e, e0) and torch.equal(m, m0)
+                and chip_smoke.f32_err(g, g0) <= chip_smoke.G_RTOL * float(g0.abs().max()))
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def inputs(dev, cfg):
+    """K1's motion, K6's state and the CCL kernels' inputs for one batch
+    of the close-pass scene (see the module's docstring)."""
     bench = make_video(seed=0, n_frames=63, H=1080, W=1920,
                        n_entering=2, n_crossing=1, n_vanishing=1)
     frames = chip_smoke.close_pass(np, bench.frames)
@@ -106,9 +124,12 @@ def ccl_inputs(dev, cfg):
     B, T = cfg.batch_windows, cfg.window_size
     gray = bgr_to_gray_host(frames[np.arange(B * T) % len(frames), y1:y2, x1:x2])
     H, W = gray.shape[1:]
-    motion, _ = rpca_motion_window_batched(torch.from_numpy(gray.reshape(B, T, H, W)).to(dev), cfg)
-    fg = (fused_motion_filter(motion.reshape(B * T, H, W).contiguous(), cfg) > 0).contiguous()
-    lbl, _, flag = label_rank_fused(fg, RANK_SWEEPS)
+    gray = torch.from_numpy(gray.reshape(B, T, H, W)).to(dev)
+    motion, _ = rpca_motion_window_batched(gray, cfg)
+    motion = motion.reshape(B * T, H, W).contiguous()
+    k6 = chip_smoke.k6_state(torch, gray, cfg)
+    fg = (fused_motion_filter_reference(motion, cfg) > 0).contiguous()
+    lbl, _, flag = label_rank_fused_reference(fg, RANK_SWEEPS)
     slow = flag.nonzero().flatten()
     P = float(H * W)
     fg_s, k5_in = fg[slow].contiguous(), lbl[slow].contiguous()
@@ -116,56 +137,94 @@ def ccl_inputs(dev, cfg):
     k4_in = converge_frames_reference(k3_in, fg_s, cfg.ccl_max_iters, P)
     dense = torch.from_numpy(np.random.default_rng(5).random(tuple(fg.shape))
                              < chip_smoke.DENSE_DENSITY).to(dev)
-    return fg, dense, k5_in, k3_in, k4_in, fg_s, P
+    return motion, k6, fg, dense, k5_in, k3_in, k4_in, fg_s, P
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", type=Path, default=[ROOT])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                    choices=KERNELS + PARTS,
+                    help="kernels to time (default: all; this tree's K6 parts "
+                         "are timed whenever K6 is)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        print("time_ccl_slow: no CUDA device", file=sys.stderr)
+        print("time_kernels: no CUDA device", file=sys.stderr)
         return 1
     cfg = DEFAULT_CONFIG
     dev = require_cuda()
     pin_numerics()
     card = chip_smoke.gpu_line()
     print(card, flush=True)
-    fg, dense, k5_in, k3_in, k4_in, fg_s, P = ccl_inputs(dev, cfg)
-    print(f"inputs: K2 on {tuple(fg.shape)}, K3-K5 on the {fg_s.shape[0]} frames K2 flags "
-          f"in one batch of the close-pass scene", flush=True)
+    motion, k6, fg, dense, k5_in, k3_in, k4_in, fg_s, P = inputs(dev, cfg)
+    zeros = torch.zeros_like(motion)
+    print(f"inputs: K1 on {tuple(motion.shape)}, K6 at {tuple(k6[0].shape)} "
+          f"({k6[0].dtype} X, {k6[1].dtype} A and Y), K2 on {tuple(fg.shape)}, K3-K5 on the "
+          f"{fg_s.shape[0]} frames K2 flags in one batch of the close-pass scene", flush=True)
     plain = {
+        "K1": (fused_motion_filter_reference(motion, cfg),),
+        "K1 zeros": (zeros,),
+        "K6": ialm_front_reference(*k6),
         "K2": label_rank_fused_reference(fg, RANK_SWEEPS),
         "K2 dense": label_rank_fused_reference(dense, RANK_SWEEPS),
         "K5": sweep_chunk_reference(k5_in, fg_s, 4, P),
         "K3": (converge_frames_reference(k3_in, fg_s, cfg.ccl_max_iters, P),),
         "K4": rank_seed_sweep_reference(k4_in, RANK_SWEEPS),
     }
+    plain["K6 grid x2"] = plain["K6"]
     calls = {}
     for i, root in enumerate(args.trees):
         port = load_port(root, f"swt_tree{i}")
-        sweep = importlib.import_module(f"{port.__name__}.ops.ccl_sweep").sweep_chunk
-        local = importlib.import_module(f"{port.__name__}.ops.ccl_local").converge_frames
-        compact = importlib.import_module(f"{port.__name__}.ops.rank_compact")
-        rank, fused = compact.rank_seed_sweep, compact.label_rank_fused
-        calls[str(root)] = {
-            "K2": lambda f=fused: f(fg, RANK_SWEEPS),
-            "K2 dense": lambda f=fused: f(dense, RANK_SWEEPS),
+
+        def op(module, name, port=port):
+            return getattr(importlib.import_module(f"{port.__name__}.ops.{module}"), name)
+
+        fused, front = op("fused_motion", "fused_motion_filter"), op("ialm_front", "ialm_front")
+        sweep, local = op("ccl_sweep", "sweep_chunk"), op("ccl_local", "converge_frames")
+        rank, label = op("rank_compact", "rank_seed_sweep"), op("rank_compact", "label_rank_fused")
+        calls[str(root.resolve())] = {
+            "K1": lambda f=fused: f(motion, cfg),
+            "K1 zeros": lambda f=fused: f(zeros, cfg),
+            "K6": lambda f=front: f(*k6),
+            "K2": lambda f=label: f(fg, RANK_SWEEPS),
+            "K2 dense": lambda f=label: f(dense, RANK_SWEEPS),
             "K5": lambda f=sweep: f(k5_in, fg_s, 4, P),
             "K3": lambda f=local: f(k3_in, fg_s, cfg.ccl_max_iters, P),
             "K4": lambda f=rank: f(k4_in, RANK_SWEEPS),
         }
-        for name, fn in calls[str(root)].items():
+    here = calls.get(str(ROOT))
+    if here is not None:
+        from swiftwatcher_tpu_torch.ops import ialm_front as k6_mod
+
+        def grid_x2():
+            blocks = k6_mod._BLOCKS_PER_SM
+            k6_mod._BLOCKS_PER_SM = 2 * blocks
+            try:
+                return k6_mod.ialm_front(*k6)
+            finally:
+                k6_mod._BLOCKS_PER_SM = blocks
+
+        here["K6 stream"] = lambda: k6_mod.launch_front("swt_ialm_front_stream", *k6)
+        here["K6 grid x2"] = grid_x2
+    for t, fns in calls.items():
+        for name, fn in fns.items():
             got = outputs(fn())
             torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, plain[name])):
-                print(f"time_ccl_slow: {name} of {root} disagrees with the plain version",
+            if name == "K6 stream":
+                ok = all(torch.equal(g, w) for g, w in zip(got[:2], plain["K6"][:2]))
+            else:
+                ok = agrees(name, got, plain[name])
+            if not ok:
+                print(f"time_kernels: {name} of {t} disagrees with the plain version",
                       file=sys.stderr)
                 return 1
-    trees = list(calls)
+    wanted = list(args.kernels)
+    if "K6" in wanted:
+        wanted += [k for k in PARTS if k not in wanted]
     result = {"card": card, "frames": int(fg_s.shape[0]), "reps": args.reps, "ms": {}}
-    for name in ("K5", "K4", "K3", "K2", "K2 dense"):
+    for name in wanted:
+        trees = [t for t in calls if name in calls[t]]
         for way, timer in (("queued", chip_smoke.time_ms), ("back_to_back", back_to_back_ms)):
             samples = {t: [] for t in trees}
             for t in trees + trees[::-1]:
