@@ -47,8 +47,19 @@ path (`run_video`) end to end:
   9. run_video over the 1008 frames with rpca_warm_basis=False: every
      kernel K1-K6 launched, and the predicted and rejected counts of 6;
  10. the CLI (`swiftwatcher_tpu_torch.__main__.main`) on the card with
-     rpca_warm_basis=False on the small scene as a .npy clip: 2 predicted /
-     1 rejected, and six CSVs byte-equal to run_video on the CPU.
+     rpca_warm_basis=False and its default device tracker on the small
+     scene as a .npy clip: 2 predicted / 1 rejected, and six CSVs
+     byte-equal to run_video with the device tracker on the CPU;
+ 11. T1 (the device tracker's scan, csrc/track_scan.cu) vs its plain
+     version at track_enum_lap 0, 4 and 6, on the compacted tables of the
+     close-pass batch and on seeded K = 24 streams (0-30 segments a frame:
+     enumeration and JV frames, up to 24 live tracks, compact_tables
+     overflow frames, an inactive tail, and an event-buffer overflow):
+     state, events, count and overflow bit-equal; its time beside the
+     plain version's and the host SegmentTracker's on the close-pass batch;
+     then run_video over the 1008 frames with tracker_impl="device": one
+     launch per batch, K1 and K2 launched, and events equal to phase 6's
+     (frame numbers, centroids within 1e-3) with the same totals.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -61,8 +72,9 @@ times are device times by CUDA events (`time_ms`: the calls are queued
 behind a spin, so the host's dispatch is not timed).  Each
 kernel's `bound_ms` is the larger of the bytes it must move (each input
 read once, each output written once) over the card's memory rate and the
-operations it does on this run's inputs over the f32 rate (`bound`).  No
-single PyTorch call computes any of K1-K6, so `library_ms` is null.  Exits
+operations it does on this run's inputs over the f32 rate (`bound`); T1 is
+bound by neither but by the latency of its frame chain.  No single PyTorch
+call computes any of K1-K6 or T1, so `library_ms` is null.  Exits
 nonzero, printing no result, on any failure or when no CUDA device exists.
 """
 
@@ -343,6 +355,50 @@ def k6_state(torch, gray, cfg):
     return calls[-1]
 
 
+def fuzz_tables(np, torch, rng, T: int, H: int, W: int, most: int, dev):
+    """A (T, 256) region table of 30 blobs moving a few pixels a frame
+    (labels 1 + 8 k), 0 to `most` of them present in each frame, sometimes
+    the first ones and sometimes any; from `most` > 24 on, frames overflow
+    compact_tables' 24 slots."""
+    from swiftwatcher_tpu_torch.ops.props import RegionTable
+
+    n = 30
+    pos = rng.uniform((0, 0), (H, W), (n, 2))
+    vel = rng.uniform(-6, 6, (n, 2))
+    valid = np.zeros((T, 256), bool)
+    area = np.zeros((T, 256), np.int32)
+    sum_y, sum_x = np.zeros_like(area), np.zeros_like(area)
+    labels = 1 + 8 * np.arange(n)
+    for t in range(T):
+        pos = np.clip(pos + vel, 0, (H - 1, W - 1))
+        k = int(rng.integers(0, most + 1))
+        on = np.arange(k) if rng.random() < 0.5 else rng.choice(n, size=k, replace=False)
+        a = rng.integers(1, 40, k)
+        valid[t, labels[on]] = True
+        area[t, labels[on]] = a
+        sum_y[t, labels[on]] = (pos[on, 0] * a).astype(np.int32)
+        sum_x[t, labels[on]] = (pos[on, 1] * a).astype(np.int32)
+    zero = torch.zeros((T, 256), dtype=torch.int32, device=dev)
+    return RegionTable(
+        area=torch.from_numpy(area).to(dev), sum_y=torch.from_numpy(sum_y).to(dev),
+        sum_x=torch.from_numpy(sum_x).to(dev), min_y=zero, min_x=zero, max_y=zero,
+        max_x=zero, valid=torch.from_numpy(valid).to(dev))
+
+
+def track_bound(cys, valids, count: int, n_pats: int):
+    """T1's bound on one scan: it reads the (T, K) slots, frame numbers and
+    flags once, reads and writes the state, and writes `count` events of 20
+    bytes; it evaluates ~40 operations per valid (previous, current) pair
+    and, on enumeration frames, n operations per pattern (counted for every
+    frame with work, an upper count)."""
+    T, K = cys.shape
+    v = valids.float()
+    pairs = float((v[:-1].sum(1) * v[1:].sum(1)).sum())
+    busy = int((v[:-1].sum(1) + v[1:].sum(1) > 0).sum())
+    n_bytes = T * K * 9 + T * 5 + 2 * (K * 21 + 4) + 20 * count
+    return bound(n_bytes, 40 * pairs + busy * n_pats * 6)
+
+
 def run() -> None:
     import numpy as np
     import torch
@@ -373,8 +429,13 @@ def run() -> None:
         rank_seed_sweep_reference,
     )
     from swiftwatcher_tpu_torch.ops.ialm_front import ialm_front, ialm_front_reference
+    from swiftwatcher_tpu_torch.ops.roi_mask import generate_roi_mask
     from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched
-    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+    from swiftwatcher_tpu_torch.pipeline import tracking_device as td
+    from swiftwatcher_tpu_torch.pipeline.runner import frame_centroids, run_video
+    from swiftwatcher_tpu_torch.pipeline.tracking import SegmentTracker
+    from swiftwatcher_tpu_torch.pipeline.window import localize_windows_gray
+    from swiftwatcher_tpu_torch.geometry import roi_crop_region_from_corners
 
     cfg = DEFAULT_CONFIG
     dev = require_cuda()
@@ -760,8 +821,8 @@ def run() -> None:
           "cold 1080p run: predicted/rejected differ from the warm run")
 
     # 10. the CLI on the card vs run_video on the CPU, cold start
-    with tempfile.TemporaryDirectory() as td:
-        clip = Path(td) / "clip.npy"
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = Path(tmp) / "clip.npy"
         np.save(clip, small.frames)
         ui.save_corners_to_file(clip, small.corners)
         out = io.StringIO()
@@ -774,17 +835,144 @@ def run() -> None:
         check(rc == 0, f"CLI exited {rc}")
         check(re.search(r"clip: 2 predicted / 1 rejected swifts", text) is not None,
               "CLI: want 2 predicted / 1 rejected")
-        cpu_dir = Path(td) / "cpu"
+        cpu_dir = Path(tmp) / "cpu"
         run_video(open_source(clip), small.corners, cold, torch.device("cpu"),
-                  export_dir=cpu_dir)
+                  export_dir=cpu_dir, tracker_impl="device")
         names = sorted(p.name for p in cpu_dir.glob("*.csv"))
-        got = sorted(p.name for p in (Path(td) / "clip").glob("*.csv"))
+        got = sorted(p.name for p in (Path(tmp) / "clip").glob("*.csv"))
         check(len(names) == 6 and got == names, f"CLI CSVs {got} vs CPU {names}")
         for n in names:
-            check((cpu_dir / n).read_bytes() == (Path(td) / "clip" / n).read_bytes(),
+            check((cpu_dir / n).read_bytes() == (Path(tmp) / "clip" / n).read_bytes(),
                   f"CLI CSV {n} differs from the CPU run's")
-        print(f"phase 10 CLI on the card: six CSVs byte-equal to run_video on the CPU "
-              f"({', '.join(names)})", flush=True)
+        print(f"phase 10 CLI on the card (device tracker): six CSVs byte-equal to "
+              f"run_video with the device tracker on the CPU ({', '.join(names)})", flush=True)
+
+    # 11. T1, the device tracker's scan, vs its plain version; then the main
+    # path with the device tracker
+    K = cfg.max_tracks
+    crop_region = crop_region_from_corners(bench.corners, cfg)
+    roi = generate_roi_mask(bench.frames[0], roi_crop_region_from_corners(bench.corners, cfg),
+                            crop_region, cfg, device=dev)
+    table, _ = localize_windows_gray(gray_dev, cfg)
+    cy, cx, kvalid, _ = td.compact_tables(table, K)
+    close_in = (cy.reshape(B * T, K), cx.reshape(B * T, K), kvalid.reshape(B * T, K),
+                torch.arange(B * T, dtype=torch.int32, device=dev),
+                torch.ones(B * T, dtype=torch.bool, device=dev))
+    streams = [("the close-pass batch", roi, close_in)]
+    n_over = 0
+    for what, T_s, most in (("a dense stream", B * T, 30), ("a sparse stream", B * T, 4)):
+        ft = fuzz_tables(np, torch, rng, T_s, H, W, most, dev)
+        fcy, fcx, fval, fover = td.compact_tables(ft, K)
+        n_over += int(fover.sum())
+        streams.append((what, roi, (fcy, fcx, fval, torch.arange(T_s, dtype=torch.int32,
+                                                                   device=dev),
+                                    torch.arange(T_s, device=dev) < T_s - 2 * T)))
+    # every third frame empty after two full ones, all inside the ROI: more
+    # events than the buffer's 4 T slots
+    T_c = 60
+    cval = torch.from_numpy(np.arange(T_c) % 3 != 2)[:, None].repeat(1, K).to(dev)
+    ccy = torch.from_numpy(rng.uniform(0, H, (1, K)).astype(np.float32)).repeat(T_c, 1).to(dev)
+    ccx = torch.from_numpy(rng.uniform(0, W, (1, K)).astype(np.float32)).repeat(T_c, 1).to(dev)
+    streams.append(("an event-overflow stream", torch.full_like(roi, 255),
+                    (ccy + 0.5 * torch.arange(T_c, device=dev)[:, None], ccx, cval,
+                     torch.arange(T_c, dtype=torch.int32, device=dev),
+                     torch.ones(T_c, dtype=torch.bool, device=dev))))
+    check(n_over > 0, "no fuzz frame overflows compact_tables")
+    t1_overflowed = False
+    for what, r, (ycs, xcs, vals, fns, act) in streams:
+        live = vals.sum(1)
+        for n_enum in (0, 4, 6):
+            c = dataclasses.replace(cfg, track_enum_lap=n_enum)
+            args = (td.empty_state(K, dev), r, ycs.contiguous(), xcs.contiguous(),
+                    vals.contiguous(), fns, c, act)
+            s1, e1 = td.track_window(*args)
+            s0, e0 = td.track_window_reference(*args)
+            torch.cuda.synchronize()
+            for name, a in s0.to_numpy().items():
+                check(np.array_equal(a, s1.to_numpy()[name]),
+                      f"T1 state.{name} differs from its plain version on {what}, enum {n_enum}")
+            for name, a in e0.to_numpy().items():
+                check(np.array_equal(a, e1.to_numpy()[name]),
+                      f"T1 events.{name} differ from its plain version on {what}, enum {n_enum}")
+            t1_overflowed |= bool(e1.overflow)
+        print(f"phase 11 T1 bit-equal to plain on {what} ({vals.shape[0]} frames: "
+              f"{int((live == 0).sum())} empty, {int(((live > 0) & (live <= 4)).sum())} with "
+              f"1-4 slots, {int((live > 4).sum())} with 5 or more (most {int(live.max())}), "
+              f"{int((~act).sum())} inactive) at track_enum_lap 0, 4, 6: {int(e0.count)} events, "
+              f"overflow {bool(e0.overflow)}", flush=True)
+    check(t1_overflowed, "no stream overflowed the event buffer")
+    print(f"phase 11 fuzz frames over compact_tables' {K} slots: {n_over}", flush=True)
+    _, (ycs, xcs, vals, fns, act) = streams[0][1:]
+    t1_args = (td.empty_state(K, dev), roi, ycs.contiguous(), xcs.contiguous(),
+               vals.contiguous(), fns, cfg, act)
+    t1_ms, t1_plain_ms = alternate_ms(torch, lambda: td.track_window_reference(*t1_args),
+                                      lambda: td.track_window(*t1_args), reps=2, what="T1")
+    _, t1_events = td.track_window(*t1_args)
+    t1_bound = track_bound(ycs, vals, int(t1_events.count), len(td._pattern_table(4)))
+    # the host tracker on the same batch: its table read back, centroids, steps
+    roi_np = roi.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table_h = table.map(lambda a: a.cpu()).map(torch.Tensor.numpy)
+    t_read = time.perf_counter()
+    host = SegmentTracker(roi_np, cfg)
+    for i in range(B * T):
+        host.step(frame_centroids(table_h, i // T, i % T), i, i)
+    t_host = time.perf_counter()
+    host_ms, host_steps_ms = (t_host - t0) * 1e3, (t_host - t_read) * 1e3
+    ev_dev = sorted(zip(*(t1_events.to_numpy()[k][: int(t1_events.count)] for k in (
+        "last_fn", "first_cy", "first_cx", "last_cy", "last_cx"))))
+    ev_host = sorted((e.frame_number, *e.first_centroid, *e.last_centroid) for e in host.events)
+    check(len(ev_dev) == len(ev_host) > 0 and all(
+        d[0] == h[0] and np.allclose(d[1:], h[1:], atol=1e-3) for d, h in zip(ev_dev, ev_host)),
+        "T1's events on the close-pass batch differ from the host tracker's")
+    for what, _, (ycs, xcs, vals, fns, act) in streams[1:]:
+        a = (td.empty_state(K, dev), roi, ycs.contiguous(), xcs.contiguous(),
+             vals.contiguous(), fns, cfg, act)
+        print(f"phase 11 T1 time on {what}: {time_ms(torch, lambda: td.track_window(*a), 10, 'T1'):.4f} "
+              f"ms [{card}]", flush=True)
+    print(f"phase 11 T1 on the close-pass batch ({B * T} frames, {len(ev_dev)} events as the "
+          f"host tracker's): kernel {t1_ms:.4f} ms, plain {t1_plain_ms:.4f} ms, host "
+          f"SegmentTracker {host_ms:.4f} ms ({host_steps_ms:.4f} ms of steps after "
+          f"{host_ms - host_steps_ms:.4f} ms of table read-back), bound {t1_bound[0]:.6f} ms "
+          f"({t1_bound[1]}; the kernel is bound by the latency of its frame chain) [{card}]",
+          flush=True)
+
+    wrappers["track_window"] = td.track_window
+    for name in ("fused_motion_filter", "label_rank_fused", "track_window"):
+        wrappers[name].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r11 = run_video(LoopingArraySource(bench.frames, total=n_frames, fps=bench.fps),
+                    bench.corners, cfg, dev, tracker_impl="device")
+    torch.cuda.synchronize()
+    secs11 = time.perf_counter() - t0
+    dev_launches = {name: wrappers[name].launches
+                    for name in ("fused_motion_filter", "label_rank_fused", "track_window")}
+    print(f"phase 11 run_video 1080p, device tracker: {r11.frames_processed} frames in "
+          f"{secs11:.2f} s = {r11.frames_processed / secs11:.1f} frames/s (host tracker, phase "
+          f"6: {r6.frames_processed / secs:.1f}) [{card}], {len(r11.events)} events "
+          f"({r11.total_predicted} predicted / {r11.total_rejected} rejected), "
+          f"{r11.metrics.batches} batches, launches {dev_launches}", flush=True)
+    check(r11.frames_processed == n_frames, "device-tracker run processed the wrong frame count")
+    check(dev_launches["track_window"] == r11.metrics.batches > 0,
+          "T1 was not launched once per batch")
+    check(dev_launches["fused_motion_filter"] > 0 and dev_launches["label_rank_fused"] > 0,
+          "K1 or K2 was not launched on the device-tracker run")
+    check((r11.total_predicted, r11.total_rejected) == (r6.total_predicted, r6.total_rejected),
+          "device-tracker run: predicted/rejected differ from the host-tracker run")
+
+    def key(e):
+        return (e.frame_number, *e.first_centroid, *e.last_centroid)
+
+    d_ev, h_ev = sorted(map(key, r11.events)), sorted(map(key, r6.events))
+    check(len(d_ev) == len(h_ev) and all(
+        d[0] == h[0] and np.allclose(d[1:], h[1:], atol=1e-3) for d, h in zip(d_ev, h_ev)),
+        "device-tracker events differ from the host tracker's")
+    print(f"phase 11 device-tracker events equal phase 6's: {len(d_ev)} events, frame numbers "
+          f"equal, centroids max |diff| "
+          f"{max(float(np.abs(np.subtract(d[1:], h[1:])).max()) for d, h in zip(d_ev, h_ev)):.3g}",
+          flush=True)
 
     # every kernel's bound at the inputs timed above
     hw = H * W
@@ -796,6 +984,7 @@ def run() -> None:
         "converge_frames": bound(n_close * hw * 9, n_close * hw * 12),
         "rank_seed_sweep": bound(n_close * (hw * 8 + 1), n_close * hw * (12 * 4 + 2)),
         "ialm_front": k6_bound,
+        "track_window": t1_bound,
     }
     kernels = [
         {"name": "fused_motion_filter", "route": "cuda",
@@ -826,6 +1015,12 @@ def run() -> None:
         "replaces": "swiftwatcher_tpu/ops/pallas/ialm_front.py:87",
         "launches": cold_launches["ialm_front"], "max_abs_err": k6_err,
         "ms": k6_ms, "plain_ms": k6_plain_ms})
+    kernels.append({
+        "name": "track_window", "route": "cuda",
+        "source": "swiftwatcher_tpu_torch/csrc/track_scan.cu",
+        "replaces": "swiftwatcher_tpu/pipeline/tracking_jax.py:410",
+        "launches": dev_launches["track_window"], "max_abs_err": 0,  # bit-equal, checked
+        "ms": t1_ms, "plain_ms": t1_plain_ms})
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None

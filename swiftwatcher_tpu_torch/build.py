@@ -76,6 +76,15 @@ _SIGNATURES = {
             _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
         ],
     },
+    "track_scan": {
+        "swt_track_scan": [
+            *[_VOID_P] * 7, _VOID_P, _INT, _INT,        # state in; ROI mask, H, W
+            *[_VOID_P] * 5, _INT, _INT,                 # frames; T, K
+            _VOID_P, _INT, _INT,                        # pattern table, its rows, n_enum
+            *[_FLOAT] * 8,                              # cost constants
+            *[_VOID_P] * 14, _INT, _VOID_P,             # state out, events; cap; stream
+        ],
+    },
 }
 
 KERNEL_SOURCES = tuple(sorted(_SIGNATURES))

@@ -64,11 +64,11 @@ class PipelineConfig:
     angle_cost_knee: float = 90.0
     # segment_tracking.py:254  non-match cost
     nonmatch_cost: float = 1.0
-    # Track-table capacity of the device tracker; the host tracker, the
-    # only one ported so far, has no capacity (ROADMAP.md section 1 item 1).
+    # Track-table capacity of the device tracker (pipeline/tracking_device.py);
+    # the host tracker has no capacity.
     max_tracks: int = 24
-    # Exponent clamp of the device tracker's f32 costs (ROADMAP.md section 1
-    # item 1); no effect on the host tracker.
+    # Exponent clamp of the device tracker's f32 costs; no effect on the
+    # host tracker.
     cost_exp_clamp: float = 60.0
 
     # ----- event classification --------------------------------------------
@@ -167,14 +167,15 @@ class PipelineConfig:
     wire_auto_mbps: float = 1000.0
     wire_lvl2_quantum: int = 131072
     wire_esc3_quantum: int = 4096
-    # ----- device tracker (ROADMAP.md section 1 item 1) ----------------------
-    # Frames per device-tracker scan step; no effect on the host tracker.
+    # ----- device tracker (pipeline/tracking_device.py) ----------------------
+    # Frames per step of the JAX package's scan; the port's device tracker
+    # accepts it and gives the same results for any value.
     track_scan_chunk: int = 1
     # Enumeration LAP threshold of the device tracker; no effect on the host
     # tracker.
     track_enum_lap: int = 4
-    # Stacked scatters/gathers in the device tracker; no effect on the host
-    # tracker.
+    # Stacked scatters/gathers in the JAX package's scan; the port accepts
+    # it and gives the same results either way.
     track_stacked_ops: bool = False
 
     # ----- extensions beyond the reference ----------------------------------

@@ -30,13 +30,15 @@ class WindowPrefetcher:
         crop_region,
         device: torch.device,
         cfg: PipelineConfig = DEFAULT_CONFIG,
+        initial_planned: int = 0,
     ):
         self.source = source
         self.cfg = cfg
         self.device = torch.device(device)
         (self.x1, self.y1), (self.x2, self.y2) = crop_region
-        self._planned = 0
-        self._exhausted = source.total_frames <= 0
+        # frames already counted by a run this one resumes
+        self._planned = initial_planned
+        self._exhausted = initial_planned >= source.total_frames
         self.bytes_uploaded = 0
         self._ex = ThreadPoolExecutor(max_workers=1)
         self._futures = [

@@ -26,6 +26,10 @@ import numpy as np
 class FrameSource:
     """Base frame source; subclasses implement read_frame()."""
 
+    #: whether read_frame honours any frame_number (random access); a
+    #: sequential source cannot resume from a checkpoint
+    supports_seek = True
+
     def __init__(self):
         self.fps = 0.0
         self.start_frame = 0
@@ -133,6 +137,8 @@ class VideoFileSource(FrameSource):
     """A container read through cv2.VideoCapture, in sequence: the cv2
     backend of swiftwatcher_tpu/io/readers.py:VideoFileSource.  A failed
     decode yields None, which get_frame replaces by the last good frame."""
+
+    supports_seek = False
 
     def __init__(self, filepath, end: int = 0, backend: str = "cv2"):
         super().__init__()

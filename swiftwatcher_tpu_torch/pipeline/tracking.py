@@ -13,8 +13,8 @@ the reference carries.
 
 The port's copy of swiftwatcher_tpu/pipeline/tracking.py.  This host
 tracker is the parity path: it uses scipy's linear_sum_assignment, the very
-function the reference calls.  The device tracker is not ported yet
-(ROADMAP.md section 1 item 1).
+function the reference calls.  The device tracker is
+pipeline/tracking_device.py.
 """
 
 from __future__ import annotations

@@ -36,10 +36,11 @@ def parse_args(argv=None):
         "(ROADMAP.md section 1 item 3)",
     )
     parser.add_argument(
-        "--tracker", choices=["host", "device"], default="host",
-        help="tracking implementation: host (scipy, the strict-parity "
-        "path, and the default until the device tracker is ported) or "
-        "device (not ported yet: ROADMAP.md section 1 item 1)",
+        "--tracker", choices=["host", "device"], default="device",
+        help="tracking implementation: device (the whole batch's tracking "
+        "scan on the device, one kernel launch per batch on a card; the "
+        "default, event-for-event equal to host on the test corpus) or "
+        "host (scipy, the strict-parity reference path)",
     )
     parser.add_argument(
         "--profile", action="store_true",

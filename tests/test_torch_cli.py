@@ -1,5 +1,6 @@
 """The port's CLI (swiftwatcher_tpu_torch/__main__.py) vs the JAX package's
-on a .npy clip, warm and cold start: the same printed counts and byte-equal
+on a .npy clip, warm and cold start, with the host tracker and with each
+CLI's default (the device tracker): the same printed counts and byte-equal
 CSVs.  Each CLI gets its own copy of the clip and its attributes.json,
 since both write next to the video.  Flags the port has not ported raise,
 naming their ROADMAP.md item.  The cv2 container source reads an MJPG AVI
@@ -9,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from swiftwatcher_tpu import ui as jax_ui
 from swiftwatcher_tpu.__main__ import main as jax_main
@@ -35,6 +37,17 @@ def _isolated_compile_cache(tmp_path_factory):
     jax.config.update("jax_compilation_cache_dir", None)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    several worker processes on one host, and torch's default of a thread
+    per core makes them wait on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def video():
     return make_video(seed=0, n_frames=63, n_entering=2, n_crossing=1, n_vanishing=1)
@@ -52,14 +65,22 @@ def _count_lines(out):
     return [ln for ln in out.splitlines() if "predicted" in ln or "No events" in ln]
 
 
-@pytest.mark.parametrize("warm", ["true", "false"])
-def test_cli_vs_jax_counts_and_csvs(tmp_path, video, capsys, warm):
+# (rpca_warm_basis, tracker flags): the host tracker, and each CLI's default
+# tracker (device in both)
+CLI_CASES = [pytest.param("true", ["--tracker", "host"], id="true"),
+             pytest.param("false", ["--tracker", "host"], id="false"),
+             pytest.param("true", [], id="true-default-tracker"),
+             pytest.param("false", [], id="false-default-tracker")]
+
+
+@pytest.mark.parametrize("warm, tracker", CLI_CASES)
+def test_cli_vs_jax_counts_and_csvs(tmp_path, video, capsys, warm, tracker):
     ours = _clip(tmp_path / "torch", video)
     theirs = _clip(tmp_path / "jax", video, jax_ui.save_corners_to_file)
-    s = ["--set", f"rpca_warm_basis={warm}"]
-    assert main(["--filepaths", str(ours), "--device", "cpu", "--tracker", "host", *s]) == 0
+    s = ["--set", f"rpca_warm_basis={warm}", *tracker]
+    assert main(["--filepaths", str(ours), "--device", "cpu", *s]) == 0
     out_ours = capsys.readouterr().out
-    assert jax_main(["--filepaths", str(theirs), "--tracker", "host", *s]) == 0
+    assert jax_main(["--filepaths", str(theirs), *s]) == 0
     out_theirs = capsys.readouterr().out
     assert _count_lines(out_ours) == _count_lines(out_theirs)
     assert "clip: 2 predicted / 1 rejected swifts." in out_ours
@@ -76,7 +97,6 @@ def test_cli_vs_jax_counts_and_csvs(tmp_path, video, capsys, warm):
     (["--profile"], "item 2"),
     (["--mesh", "2"], "item 6"),
     (["--parallel-videos", "2"], "item 3"),
-    (["--tracker", "device"], "item 1"),
     (["--accuracy-pack"], "item 5"),
 ])
 def test_unported_flags_raise(tmp_path, video, flags, item):
@@ -96,9 +116,10 @@ def test_pickers_and_hdf5_raise(tmp_path, video):
         open_source(tmp_path / "clip.h5")
 
 
-def test_defaults_run_on_the_card_with_the_host_tracker():
+def test_defaults_run_on_the_card_with_the_device_tracker():
     args = ui.parse_args(["--filepaths", "x.npy"])
-    assert args.device == "cuda" and args.tracker == "host"
+    assert args.device == "cuda" and args.tracker == "device"
+    assert jax_ui.parse_args(["--filepaths", "x.npy"]).tracker == args.tracker
 
 
 def _read_all(src, n):

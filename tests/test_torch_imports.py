@@ -64,7 +64,8 @@ def _imported_tops(path):
 
 
 @pytest.mark.parametrize(
-    "script", ["chip_smoke.py", "tools/torch_profile.py", "tools/time_kernels.py"]
+    "script", ["chip_smoke.py", "tools/torch_profile.py", "tools/time_kernels.py",
+               "tools/torch_parity_fuzz.py"]
 )
 def test_card_scripts_import_the_port_only(script):
     """The port keeps its own copies of the host modules it needs."""

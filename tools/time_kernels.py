@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's kernels (K1-K6) of trees of the port on the same inputs,
-on one GPU.
+"""Time the port's kernels (K1-K6, T1) of trees of the port on the same
+inputs, on one GPU.
 
     python3 tools/time_kernels.py [--trees DIR ...] [--reps 20] [--kernels NAME ...]
 
@@ -19,8 +19,12 @@ A and Y).  K2 runs on the batch's foreground after K1, and on as many
 frames of dense speckle (chip_smoke.DENSE_DENSITY).  K3-K5 run on the
 frames K2 flags, with the planes the slow path hands each: K5 (4 sweeps)
 K2's swept labels, K3 the labels after K5's 24-sweep budget, K4 the
-converged labels.  Every tree's outputs are checked against this tree's
-plain versions: bit-equal, except K6's G, within 1e-4 of max|G|.
+converged labels.  T1 (the device tracker's scan) runs on the batch's
+compacted region tables (336 frames, K = 24), "T1 dense" and "T1 sparse"
+on chip_smoke.fuzz_tables streams of as many frames with 0-30 and 0-4
+segments a frame; trees without the device tracker skip them.  Every
+tree's outputs are checked against this tree's plain versions: bit-equal,
+except K6's G, within 1e-4 of max|G|.
 
 Each kernel of each tree is timed in two ways, in turns over the trees
 (A, B, B, A for two): queued behind a spin (chip_smoke.time_ms, device
@@ -65,7 +69,8 @@ from swiftwatcher_tpu_torch.ops.rank_compact import (  # noqa: E402
 )
 from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched  # noqa: E402
 
-KERNELS = ("K1", "K1 zeros", "K6", "K5", "K4", "K3", "K2", "K2 dense")
+KERNELS = ("K1", "K1 zeros", "K6", "K5", "K4", "K3", "K2", "K2 dense", "T1", "T1 dense",
+           "T1 sparse")
 PARTS = ("K6 stream", "K6 grid x2")
 
 
@@ -114,17 +119,50 @@ def agrees(name, got, want) -> bool:
     return all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def t1_outputs(out):
+    """T1's (state, events) as one tuple of tensors."""
+    return tuple(getattr(part, f) for part in out for f in vars(part))
+
+
+def t1_inputs(dev, cfg, bench, gray):
+    """{name: track_window's arguments} for T1 on the batch's compacted
+    tables and on two fuzz streams of as many frames."""
+    from swiftwatcher_tpu_torch.geometry import roi_crop_region_from_corners
+    from swiftwatcher_tpu_torch.ops.roi_mask import generate_roi_mask
+    from swiftwatcher_tpu_torch.pipeline.tracking_device import compact_tables, empty_state
+    from swiftwatcher_tpu_torch.pipeline.window import localize_windows_gray
+
+    K, N = cfg.max_tracks, gray.shape[0] * gray.shape[1]
+    roi = generate_roi_mask(bench.frames[0], roi_crop_region_from_corners(bench.corners, cfg),
+                            crop_region_from_corners(bench.corners, cfg), cfg, device=dev)
+    fns = torch.arange(N, dtype=torch.int32, device=dev)
+    act = torch.ones(N, dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(11)
+    tables = {"T1": localize_windows_gray(gray, cfg)[0]}
+    for name, most in (("T1 dense", 30), ("T1 sparse", 4)):
+        tables[name] = chip_smoke.fuzz_tables(np, torch, rng, N, *gray.shape[2:], most, dev)
+    args = {}
+    for name, table in tables.items():
+        cy, cx, valid, _ = compact_tables(table, K)
+        args[name] = (empty_state(K, dev), roi, cy.reshape(N, K).contiguous(),
+                      cx.reshape(N, K).contiguous(), valid.reshape(N, K).contiguous(),
+                      fns, cfg, act)
+    return args
+
+
 def inputs(dev, cfg):
-    """K1's motion, K6's state and the CCL kernels' inputs for one batch
-    of the close-pass scene (see the module's docstring)."""
+    """K1's motion, K6's state, the CCL kernels' and T1's inputs for one
+    batch of the close-pass scene (see the module's docstring)."""
     bench = make_video(seed=0, n_frames=63, H=1080, W=1920,
                        n_entering=2, n_crossing=1, n_vanishing=1)
     frames = chip_smoke.close_pass(np, bench.frames)
+    bench.frames = frames
     (x1, y1), (x2, y2) = crop_region_from_corners(bench.corners, cfg)
     B, T = cfg.batch_windows, cfg.window_size
     gray = bgr_to_gray_host(frames[np.arange(B * T) % len(frames), y1:y2, x1:x2])
     H, W = gray.shape[1:]
     gray = torch.from_numpy(gray.reshape(B, T, H, W)).to(dev)
+    t1 = t1_inputs(dev, cfg, bench, gray)
     motion, _ = rpca_motion_window_batched(gray, cfg)
     motion = motion.reshape(B * T, H, W).contiguous()
     k6 = chip_smoke.k6_state(torch, gray, cfg)
@@ -137,7 +175,7 @@ def inputs(dev, cfg):
     k4_in = converge_frames_reference(k3_in, fg_s, cfg.ccl_max_iters, P)
     dense = torch.from_numpy(np.random.default_rng(5).random(tuple(fg.shape))
                              < chip_smoke.DENSE_DENSITY).to(dev)
-    return motion, k6, fg, dense, k5_in, k3_in, k4_in, fg_s, P
+    return motion, k6, fg, dense, k5_in, k3_in, k4_in, fg_s, P, t1
 
 
 def main() -> int:
@@ -157,7 +195,7 @@ def main() -> int:
     pin_numerics()
     card = chip_smoke.gpu_line()
     print(card, flush=True)
-    motion, k6, fg, dense, k5_in, k3_in, k4_in, fg_s, P = inputs(dev, cfg)
+    motion, k6, fg, dense, k5_in, k3_in, k4_in, fg_s, P, t1 = inputs(dev, cfg)
     zeros = torch.zeros_like(motion)
     print(f"inputs: K1 on {tuple(motion.shape)}, K6 at {tuple(k6[0].shape)} "
           f"({k6[0].dtype} X, {k6[1].dtype} A and Y), K2 on {tuple(fg.shape)}, K3-K5 on the "
@@ -172,6 +210,10 @@ def main() -> int:
         "K3": (converge_frames_reference(k3_in, fg_s, cfg.ccl_max_iters, P),),
         "K4": rank_seed_sweep_reference(k4_in, RANK_SWEEPS),
     }
+    if any(k.startswith("T1") for k in args.kernels):
+        from swiftwatcher_tpu_torch.pipeline.tracking_device import track_window_reference
+
+        plain.update({k: t1_outputs(track_window_reference(*a)) for k, a in t1.items()})
     plain["K6 grid x2"] = plain["K6"]
     calls = {}
     for i, root in enumerate(args.trees):
@@ -193,6 +235,14 @@ def main() -> int:
             "K3": lambda f=local: f(k3_in, fg_s, cfg.ccl_max_iters, P),
             "K4": lambda f=rank: f(k4_in, RANK_SWEEPS),
         }
+        try:
+            scan = importlib.import_module(
+                f"{port.__name__}.pipeline.tracking_device").track_window
+        except ImportError:            # a tree from before the device tracker
+            scan = None
+        if scan is not None and any(k.startswith("T1") for k in args.kernels):
+            calls[str(root.resolve())].update({
+                name: lambda f=scan, a=a: t1_outputs(f(*a)) for name, a in t1.items()})
     here = calls.get(str(ROOT))
     if here is not None:
         from swiftwatcher_tpu_torch.ops import ialm_front as k6_mod
