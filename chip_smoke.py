@@ -59,7 +59,23 @@ path (`run_video`) end to end:
      plain version's and the host SegmentTracker's on the close-pass batch;
      then run_video over the 1008 frames with tracker_impl="device": one
      launch per batch, K1 and K2 launched, and events equal to phase 6's
-     (frame numbers, centroids within 1e-3) with the same totals.
+     (frame numbers, centroids within 1e-3) with the same totals;
+ 12. --classify and --export: the PIL-exact preprocess on the card
+     bit-equal to the CPU at 100 crop sizes; the SqueezeNet forward on the
+     card vs the CPU on the close-pass batch's crops and on seeded canvases
+     (max |logit diff|, smallest margin, equal argmaxes), with TF32 turned
+     on by the caller and found off at every forward; its time and the
+     preprocess's per batch; run_video on the small scene with two weight
+     sets that reject part of its segments, card == CPU on the host
+     tracker and on the device tracker fused and unfused; run_video
+     --classify over the 1008 frames with the shipped weights on those
+     three paths (K1-K5 launched, T1 once a batch on the device tracker,
+     no host sync inside the fused classify-then-track call, events equal
+     to each other and to phase 11's), with frames/s, the classify stage
+     seconds, peak device memory, peak host RSS and the classifier's upload
+     bytes; and the CLI with --classify --export on the card with the
+     device tracker (T1 launched): six CSVs and the PNGs byte-equal to the
+     host tracker's on the CPU.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -974,6 +990,9 @@ def run() -> None:
           f"{max(float(np.abs(np.subtract(d[1:], h[1:])).max()) for d, h in zip(d_ev, h_ev)):.3g}",
           flush=True)
 
+    phase12(np, torch, dev, cfg, card, bench, gray_dev, idx, small, r11, secs11, wrappers,
+            n_frames)
+
     # every kernel's bound at the inputs timed above
     hw = H * W
     bounds = {
@@ -1031,6 +1050,325 @@ def run() -> None:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+def conv_flops(torch, sq, params, x) -> int:
+    """Operations of the convolutions of one forward of x: 2 per
+    multiply-add, counted from the shapes each convolution sees."""
+    conv = sq.F.conv2d
+    total = [0]
+
+    def counting(inp, w, *a, **k):
+        out = conv(inp, w, *a, **k)
+        total[0] += 2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        return out
+
+    sq.F.conv2d = counting
+    try:
+        sq.forward(params, x[:1])
+    finally:
+        sq.F.conv2d = conv
+    return total[0] * x.shape[0]
+
+
+# classifier.1.bias[1] of two weight sets that reject part of a scene's
+# segments with no logit within 1e-3 of its rival: "split" about half (no
+# event is left), "partial" fewer (the events move)
+# (tests/test_torch_classify_runner.py)
+WEIGHT_SETS = {"split": -200.0, "partial": -150.0}
+
+
+class RssPeak:
+    """The peak resident set of this process while the block runs, sampled
+    from /proc every 20 ms, in MiB."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = 0.0
+        self._stop = threading.Event()
+
+        def sample():
+            while True:
+                with open("/proc/self/status") as fh:
+                    for line in fh:
+                        if line.startswith("VmRSS:"):
+                            self.peak = max(self.peak, int(line.split()[1]) / 1024)
+                if self._stop.wait(0.02):
+                    return
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def phase12(np, torch, dev, cfg, card, bench, gray_dev, idx, small, r11, secs11, wrappers,
+            n_frames) -> None:
+    """--classify and --export on the card: the preprocess and the network
+    against the CPU, run_video with the filter on three paths, the CLI."""
+    import warnings
+
+    from swiftwatcher_tpu_torch import ui
+    from swiftwatcher_tpu_torch.__main__ import main as cli_main
+    from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
+    from swiftwatcher_tpu_torch.io.source import ArraySource, LoopingArraySource
+    from swiftwatcher_tpu_torch.models import squeezenet as sq
+    from swiftwatcher_tpu_torch.models.classifier import DEFAULT_WEIGHTS, SqueezeNetSegmentFilter
+    from swiftwatcher_tpu_torch.models.preprocess import (
+        pack_canvases,
+        preprocess_batch,
+        resize_coeffs,
+    )
+    from swiftwatcher_tpu_torch.pipeline import runner as runner_mod
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+    from swiftwatcher_tpu_torch.pipeline.window import localize_windows_gray
+
+    cpu = torch.device("cpu")
+    B, T = cfg.batch_windows, cfg.window_size
+    out = cfg.cnn_resize_to
+    rng = np.random.default_rng(12)
+
+    # 12.1 the PIL-exact preprocess, card vs CPU, at the 100 sizes of the tests
+    sizes = [(h, w) for h in (1, 3, 5, 13, 24, 25, 26, 33, 47, 64)
+             for w in (1, 3, 5, 13, 24, 25, 26, 33, 47, 64)]
+    canv, hs, ws = pack_canvases([rng.integers(0, 256, (h, w, 3), np.uint8)
+                                  for h, w in sizes], 64)
+    args = [torch.from_numpy(a) for a in (canv, resize_coeffs(ws, 64, out),
+                                          resize_coeffs(hs, 64, out))]
+    pre_card = preprocess_batch(*(a.to(dev) for a in args), cfg).cpu()
+    check(torch.equal(pre_card, preprocess_batch(*args, cfg)),
+          "preprocess_batch on the card differs from the CPU")
+    print(f"phase 12 preprocess_batch card == CPU, bit-equal, at {len(sizes)} sizes "
+          f"(1..64 x 1..64 in a 64 canvas)", flush=True)
+
+    # 12.2 the network on the close-pass batch's real crops and on seeded
+    # canvases, card vs CPU; TF32 left on by a caller is pinned off first
+    filt = SqueezeNetSegmentFilter.from_default_weights(cfg, dev)
+    filt_cpu = SqueezeNetSegmentFilter(filt.params, cfg, cpu)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    seen_tf32 = []
+    forward = sq.forward
+
+    def watched(params, x):
+        seen_tf32.append(torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32)
+        return forward(params, x)
+
+    sq.forward = watched
+    try:
+        table, _ = localize_windows_gray(gray_dev, cfg, with_bbox=True)
+        host = table.map(lambda a: a.cpu()).map(torch.Tensor.numpy)
+        crop_region = crop_region_from_corners(bench.corners, cfg)
+        crops = []
+        for b in range(B):
+            for t in range(T):
+                images, _ = filt._frame_images(host, (b, t), bench.frames[idx[b * T + t]],
+                                               crop_region)
+                crops += [im for im in images if im is not None]
+        keep_card = filt.classify_images(crops)
+    finally:
+        sq.forward = forward
+    check(seen_tf32 and not any(seen_tf32), "TF32 was on at the network's forward")
+    check(np.array_equal(keep_card, filt_cpu.classify_images(crops)),
+          "keep-masks of the close-pass crops differ between card and CPU")
+    seeded = [rng.integers(0, 256, (int(h), int(w), 3), np.uint8)
+              for h, w in rng.integers(1, 65, (64, 2))]
+    sets = {}
+    for what, images in (("the close-pass batch's crops", crops), ("seeded canvases", seeded)):
+        n, mx = len(images), filt._canvas_bucket(images)
+        P = filt._padded_n(n)
+        canv, hs, ws = pack_canvases(images + [np.zeros((1, 1, 3), np.uint8)] * (P - n), mx)
+        x = preprocess_batch(torch.from_numpy(canv), torch.from_numpy(resize_coeffs(ws, mx, out)),
+                             torch.from_numpy(resize_coeffs(hs, mx, out)), cfg)
+        x_dev = x.to(dev)
+        l_card = sq.forward(filt.params, x_dev).cpu().numpy()[:n]
+        l_cpu = sq.forward(filt_cpu.params, x).numpy()[:n]
+        margin = float(np.abs(l_cpu[:, 1] - l_cpu[:, 0]).min())
+        err = float(np.abs(l_card - l_cpu).max())
+        check(np.array_equal(l_card.argmax(1), l_cpu.argmax(1)),
+              f"argmaxes differ between card and CPU on {what}")
+        print(f"phase 12 SqueezeNet card vs CPU on {what} ({n} crops, {P} rows, canvas {mx}): "
+              f"max |logit diff| {err:.3g}, smallest margin {margin:.4g}, argmaxes equal, "
+              f"{int((l_cpu.argmax(1) == 1).sum())} kept", flush=True)
+        sets[what] = (canv, hs, ws, mx, x_dev)
+    canv, hs, ws, mx, x_dev = sets["the close-pass batch's crops"]
+    canv_d, hs_d, ws_d = (torch.from_numpy(a).to(dev) for a in (canv, hs, ws))
+    coeff = filt._coeff_table(mx)
+    # three forwards: over ten, the host's queueing fell behind the device
+    cnn_ms = time_ms(torch, lambda: sq.forward(filt.params, x_dev), 3, "the network")
+    pre_ms = time_ms(torch, lambda: preprocess_batch(canv_d, coeff[ws_d - 1], coeff[hs_d - 1],
+                                                     cfg), 10, "the preprocess")
+    flops = conv_flops(torch, sq, filt.params, x_dev)
+    cnn_bound, _ = bound(sum(p.numel() * 4 for p in filt.params.values()) + x_dev.numel() * 4,
+                         flops)
+    print(f"phase 12 on the close-pass batch's {x_dev.shape[0]} rows: SqueezeNet forward "
+          f"{cnn_ms:.4f} ms ({flops / 1e9:.1f} GFLOP of convolutions: "
+          f"{flops / cnn_ms / 1e9:.1f} TFLOP/s; bound {cnn_bound:.4f} ms at the f32 rate), "
+          f"preprocess {pre_ms:.4f} ms (canvas {mx}) [{card}]", flush=True)
+
+    def ev(r):
+        return [(e.frame_number, e.first_centroid, e.last_centroid) for e in r.events]
+
+    # 12.3 weight sets that reject part of the small scene's segments, card
+    # vs CPU, three paths
+    paths = {"host": ("host", True), "fused": ("device", True), "unfused": ("device", False)}
+    for weights, bias in WEIGHT_SETS.items():
+        with np.load(DEFAULT_WEIGHTS) as data:
+            params = {k: data[k].copy() for k in data.files}
+        params["classifier.1.bias"][1] = bias
+        params = sq.params_from_jax(params)
+        res = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            f = SqueezeNetSegmentFilter(params, cfg, d)
+            for name, (impl, fused) in paths.items():
+                res[where, name] = run_video(
+                    ArraySource(small.frames, fps=small.fps), small.corners,
+                    dataclasses.replace(cfg, classify_fused=fused), d, tracker_impl=impl,
+                    segment_filter=f)
+        for name in paths:
+            a, b = res["card", name], res["cpu", name]
+            check(ev(a) == ev(b) and (a.total_predicted, a.total_rejected) == (
+                b.total_predicted, b.total_rejected), f"{weights} weights, {name}: card != CPU")
+            check(a.metrics.segments_total == b.metrics.segments_total == res[
+                "cpu", "host"].metrics.segments_total,
+                f"{weights} weights, {name}: segments kept differ")
+        r = res["card", "fused"]
+        print(f"phase 12 run_video with the {weights} weights (bias {bias}) on the small scene, "
+              f"card == CPU on the host, fused and unfused paths: {len(r.events)} events "
+              f"({r.total_predicted} predicted / {r.total_rejected} rejected), "
+              f"{r.metrics.segments_total} segments kept", flush=True)
+
+    # 12.4 --classify at 1080p on the 1008 close-pass frames: fused, unfused
+    # and the host tracker; the fused run is watched for host syncs between
+    # its upload and T1
+    fused_call = runner_mod.classify_track_fused
+    syncs = []
+
+    def no_sync(*a, **k):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fused_call(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                # torch's warning for each synchronizing call it sees (it
+                # also warns once that the mode is a prototype)
+                syncs.extend(str(x.message) for x in w
+                             if "called a synchronizing" in str(x.message))
+
+    k_names = ("fused_motion_filter", "label_rank_fused", "sweep_chunk", "converge_frames",
+               "rank_seed_sweep", "track_window")
+    big = {}
+    for name, (impl, fused) in paths.items():
+        for k in k_names:
+            wrappers[k].launches = 0
+        runner_mod.classify_track_fused = no_sync if name == "fused" else fused_call
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        filt.upload_bytes = 0
+        try:
+            with RssPeak() as rss:
+                t0 = time.perf_counter()
+                r = run_video(LoopingArraySource(bench.frames, total=n_frames, fps=bench.fps),
+                              bench.corners, dataclasses.replace(cfg, classify_fused=fused), dev,
+                              tracker_impl=impl, segment_filter=filt)
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+        finally:
+            runner_mod.classify_track_fused = fused_call
+        launches = {k: wrappers[k].launches for k in k_names}
+        big[name] = r
+        stages = {k: round(v, 4) for k, v in r.metrics.stage_seconds.items()
+                  if k.startswith("classify")}
+        print(f"phase 12 run_video 1080p --classify, {name}: {r.frames_processed} frames in "
+              f"{s:.2f} s = {r.frames_processed / s:.1f} frames/s (without classify, phase 11: "
+              f"{r11.frames_processed / secs11:.1f}) [{card}], {len(r.events)} events "
+              f"({r.total_predicted} predicted / {r.total_rejected} rejected), "
+              f"{r.metrics.segments_total} segments kept, classify stages {stages}, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, peak host RSS "
+              f"{rss.peak:.1f} MiB, classifier upload {filt.upload_bytes / r.metrics.batches:.0f} "
+              f"B a batch, launches {launches}", flush=True)
+        check(r.frames_processed == n_frames, f"--classify {name}: wrong frame count")
+        check(filt.upload_bytes > 0, f"--classify {name}: the classifier uploaded nothing")
+        check(all(launches[k] > 0 for k in k_names[:5]),
+              f"--classify {name}: a kernel of K1-K5 was not launched")
+        if impl == "device":
+            check(launches["track_window"] == r.metrics.batches,
+                  f"--classify {name}: T1 was not launched once per batch")
+    check(not syncs, f"the fused path synchronised the host: {syncs[:3]}")
+
+    # host memory with frames that a decoder would allocate: the clip's
+    # frames are views of one array above, so keep_frames cost them nothing
+    class Decoded(LoopingArraySource):
+        def read_frame(self, frame_number, increment=True):
+            frame = super().read_frame(frame_number, increment)
+            return None if frame is None else frame.copy()
+
+    for what, kw in (("without classify", {}), ("--classify, fused", {"segment_filter": filt})):
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            r = run_video(Decoded(bench.frames, total=n_frames, fps=bench.fps), bench.corners,
+                          cfg, dev, tracker_impl="device", **kw)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        print(f"phase 12 1080p with frames copied on read (a decoding source), device "
+              f"tracker, {what}: peak host RSS {rss.peak:.1f} MiB, {r.frames_processed / s:.1f} "
+              f"frames/s, {len(r.events)} events [{card}]", flush=True)
+
+    def key(e):
+        return (e.frame_number, *e.first_centroid, *e.last_centroid)
+
+    want = sorted(map(key, r11.events))
+    check(ev(big["unfused"]) == ev(big["fused"]), "--classify: unfused events != fused events")
+    for name, r in big.items():
+        got = sorted(map(key, r.events))
+        check(len(got) == len(want) and all(
+            g[0] == h[0] and np.allclose(g[1:], h[1:], atol=1e-3) for g, h in zip(got, want)),
+            f"--classify {name}: events differ from phase 11's")
+        check(r.metrics.segments_total == big["fused"].metrics.segments_total,
+              f"--classify {name}: segments kept differ from the fused run's")
+    print(f"phase 12 --classify events equal across the three paths and to phase 11's "
+          f"({len(want)} events; {big['fused'].metrics.segments_total} segments kept), no host "
+          f"sync in the fused path", flush=True)
+
+    # 12.5 the CLI with --classify --export on the card (its default, the
+    # device tracker, which must launch T1) vs the host tracker on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {}
+        for where, d, tracker in (("card", dev, "device"), ("cpu", cpu, "host")):
+            clip = Path(tmp) / where / "clip.npy"
+            clip.parent.mkdir()
+            np.save(clip, small.frames)
+            ui.save_corners_to_file(clip, small.corners)
+            wrappers["track_window"].launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(["--filepaths", str(clip), "--classify", "--export",
+                               "--device", d.type, "--tracker", tracker])
+            check(rc == 0, f"CLI --classify --export on {where} exited {rc}")
+            if where == "card":
+                t1_export = wrappers["track_window"].launches
+                check(t1_export > 0, "CLI --classify --export: T1 was not launched")
+            dirs[where] = clip.parent / "clip"
+        names = sorted(p.name for p in dirs["cpu"].glob("*.csv"))
+        check(len(names) == 6 and names == sorted(p.name for p in dirs["card"].glob("*.csv")),
+              "CLI --classify --export: CSV sets differ")
+        for n in names:
+            check((dirs["cpu"] / n).read_bytes() == (dirs["card"] / n).read_bytes(),
+                  f"CLI --classify --export: {n} differs between card and CPU")
+        pngs = {w: sorted(p.relative_to(d) for p in (d / "segments").rglob("*.png"))
+                for w, d in dirs.items()}
+        check(pngs["cpu"] and pngs["cpu"] == pngs["card"], "CLI --export: PNG sets differ")
+        for p in pngs["cpu"]:
+            check((dirs["cpu"] / p).read_bytes() == (dirs["card"] / p).read_bytes(),
+                  f"CLI --export: {p} differs between card and CPU")
+        print(f"phase 12 CLI --classify --export on the card, device tracker ({t1_export} T1 "
+              f"launches): six CSVs and {len(pngs['cpu'])} PNGs byte-equal to the host "
+              f"tracker's on the CPU", flush=True)
 
 
 def main() -> int:

@@ -1,12 +1,16 @@
 """Console entry point of the port.
 
-    python -m swiftwatcher_tpu_torch --filepaths clip.npy [--set field=value ...] [--device cpu]
+    python -m swiftwatcher_tpu_torch --filepaths clip.npy [--classify] [--export]
+        [--set field=value ...] [--device cpu]
 
 Counterpart of swiftwatcher_tpu/__main__.py (reference __main__.py:13-53):
 per video, open a frame source by suffix, read the chimney corners from
 <video dir>/<stem>/attributes.json, count on the device, and write the six
 PREDICTED/REJECTED CSVs next to the video (under --debug, into a versioned
-run directory).  Runs on the card unless --device says otherwise.
+run directory).  --classify filters segments with the shipped SqueezeNet
+weights (models/segment_classifier.npz); --export writes each segment's
+PNGs under <video dir>/<stem>/segments.  Runs on the card unless --device
+says otherwise.
 """
 
 from __future__ import annotations
@@ -29,8 +33,6 @@ def main(argv=None) -> int:
         # preset first: an explicit --set of the same field wins
         overrides = list(ACCURACY_PACK_OVERRIDES) + overrides
     cfg = config_with_overrides(overrides)
-    if args.classify:
-        raise NotImplementedError("--classify is not ported yet (ROADMAP.md section 1 item 4)")
     if args.parallel_videos > 1:
         raise NotImplementedError(
             "--parallel-videos > 1 is not ported yet (ROADMAP.md section 1 item 3)"
@@ -39,6 +41,11 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         require_cuda()
     filepaths = args.filepaths if args.filepaths else ui.select_filepaths()
+    segment_filter = None
+    if args.classify:
+        from .models.classifier import SqueezeNetSegmentFilter
+
+        segment_filter = SqueezeNetSegmentFilter.from_default_weights(cfg, device)
 
     jobs, out_dirs = [], []
     for src_path in filepaths:
@@ -61,6 +68,7 @@ def main(argv=None) -> int:
                 export_dir=out_dirs[i],
                 debug=args.debug,
                 status_cb=ui.frames_processed_status,
+                segment_filter=segment_filter,
                 # the sibling output directory, as the JAX package's CLI does
                 export_segments_dir=(out_dirs[i] / "segments") if args.export else None,
                 tracker_impl=args.tracker,

@@ -53,8 +53,8 @@ class PipelineConfig:
     label_modulus: int = 256
     # Max CCL propagation sweeps on the slow path (bounded flood fill).
     ccl_max_iters: int = 256
-    # __main__.py:78  min segment bbox size for crop extraction (--classify,
-    # ROADMAP.md section 1 item 4)
+    # __main__.py:78  min segment bbox size for crop extraction (--classify
+    # and --export)
     min_seg_size: Tuple[int, int] = (24, 24)
 
     # ----- tracking ---------------------------------------------------------
@@ -102,7 +102,7 @@ class PipelineConfig:
     roi_median_ksize: int = 9
     roi_dilate_n: int = 20
 
-    # ----- classifier (--classify, ROADMAP.md section 1 item 4) --------------
+    # ----- classifier (--classify, models/classifier.py) ---------------------
     # segment_classification.py:18-24 preprocessing constants
     cnn_input_size: int = 224
     cnn_resize_to: int = 24
@@ -113,7 +113,8 @@ class PipelineConfig:
     # Device-side preprocessing for the CNN; larger segments go to the host.
     cnn_device_preprocess: bool = True
     cnn_max_seg_hw: int = 64
-    # Fuse the CNN keep-mask into the device tracker's program.
+    # Queue the CNN keep-mask with the device tracker's scan
+    # (pipeline/classify_fused.py).
     classify_fused: bool = True
 
     # ----- execution ---------------------------------------------------------

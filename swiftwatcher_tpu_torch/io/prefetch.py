@@ -21,8 +21,10 @@ from .source import FrameSource
 
 class WindowPrefetcher:
     """Yields (gray (B, T, h, w) uint8 on `device`, windows, cursor) batches,
-    where windows is a list of (None, frame_numbers, stamps) per real
-    window and cursor is (next_frame_number, frames_planned)."""
+    where windows is a list of (frames, frame_numbers, stamps) per real
+    window and cursor is (next_frame_number, frames_planned).  frames is
+    the source's list of full-resolution BGR frames when keep_frames is
+    set (the classifier and the segment export crop from them), else None."""
 
     def __init__(
         self,
@@ -31,8 +33,10 @@ class WindowPrefetcher:
         device: torch.device,
         cfg: PipelineConfig = DEFAULT_CONFIG,
         initial_planned: int = 0,
+        keep_frames: bool = False,
     ):
         self.source = source
+        self.keep_frames = keep_frames
         self.cfg = cfg
         self.device = torch.device(device)
         (self.x1, self.y1), (self.x2, self.y2) = crop_region
@@ -55,7 +59,7 @@ class WindowPrefetcher:
             frames, numbers, stamps = self.source.get_window(cfg.window_size)
             crops = np.stack([f[self.y1 : self.y2, self.x1 : self.x2, :] for f in frames])
             grays.append(bgr_to_gray_host(crops))
-            wins.append((None, numbers, stamps))
+            wins.append((frames if self.keep_frames else None, numbers, stamps))
             self._planned += sum(1 for n in numbers if n >= 0)
         if not wins:
             self._exhausted = True

@@ -102,6 +102,8 @@ class ArraySource(FrameSource):
         self.end_frame = end if end > 0 else len(self._frames)
         self.next_frame_number = self.start_frame
         self.total_frames = self.end_frame - self.start_frame
+        # the JAX package's name for in-memory clips (segment PNG names)
+        self.filepath = Path("synthetic.mem")
 
     def read_frame(self, frame_number: int, increment: bool = True):
         frame = self._frames[frame_number] if frame_number < len(self._frames) else None

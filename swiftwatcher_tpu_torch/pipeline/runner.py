@@ -15,11 +15,28 @@ Two trackers, as in the JAX package:
     read back.
 Either can checkpoint every `checkpoint_interval_batches` batches and
 resume from its checkpoint (utils/checkpoint.py).
+
+`segment_filter` (--classify, models/classifier.py) drops the segments a
+classifier rejects before tracking; it needs the full-resolution frames
+(the prefetcher keeps them) and the tables' bboxes.  On the host tracker
+one batch_call classifies a batch's segments (a filter without batch_call
+is called per frame).  On the device tracker the compacted valid and bbox
+planes are read back and the crops are packed on the host; then either
+the forward, the keep scatter and the tracking scan are queued on the
+device together (pipeline/classify_fused.py), or, for a crop too large for
+a device canvas, with classify_fused=False, with --export or for a filter
+without batch_call, the host's keep-mask is uploaded before the scan.
+`export_segments_dir` (--export, io/segments_export.py) writes each
+frame's segment PNGs after the filter, on either tracker; the device
+tracker exports from the same read-back planes, so a frame whose segments
+overflow max_tracks exports (and classifies) the first max_tracks of them,
+the ones it tracks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from pathlib import Path
 from typing import Callable, List, Optional
 
@@ -30,14 +47,33 @@ from ..config import PipelineConfig
 from ..device import pin_numerics
 from ..geometry import crop_region_from_corners, roi_crop_region_from_corners
 from ..io.prefetch import WindowPrefetcher
+from ..io.segments_export import export_frame_segments
 from ..io.source import FrameSource
+from ..models.classifier import upload
 from ..ops.roi_mask import generate_roi_mask
 from ..utils import checkpoint
 from ..utils.metrics import RunMetrics
+from .classify_fused import classify_track_fused, pack_fused
 from .events import ClassifiedEvents, classify_events, labels_dataframe
 from .tracking import Event, SegmentTracker
 from .tracking_device import compact_tables, empty_state, track_window
 from .window import localize_windows_gray
+
+
+@dataclasses.dataclass
+class _CompactTableView:
+    """A RegionTable look-alike over compacted (B, T, K) host arrays.
+
+    The device tracker's classify path hands it to the filter instead of
+    the 256-slot table: valid slots are packed first in ascending label
+    order (tracking_device.compact_tables), so lookups by
+    np.nonzero(valid) see the same segments in the same order."""
+
+    valid: np.ndarray
+    min_y: np.ndarray
+    min_x: np.ndarray
+    max_y: np.ndarray
+    max_x: np.ndarray
 
 
 @dataclasses.dataclass
@@ -66,6 +102,25 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1 item {item})")
 
 
+def _start_readback(t: torch.Tensor):
+    """Start copying `t` to the host without waiting for it: (host tensor,
+    CUDA event to wait on, or None off the card)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _finish_readback(started) -> np.ndarray:
+    host, done = started
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
 def run_video(
     source: FrameSource,
     corners,
@@ -88,6 +143,15 @@ def run_video(
     On a CUDA device this pins full-f32 products first (`pin_numerics`).
     status_cb(frames_processed, total_frames) is called after each batch.
     tracker_impl: "host" or "device" (see the module docstring).
+    segment_filter: optional keep-mask hook (models.classifier.
+    SqueezeNetSegmentFilter), called as segment_filter(table, (b, t),
+    full_frame_bgr, crop_region) -> list[bool] over the frame's valid
+    segments in label order, or through its batch_call(table, {(b, t):
+    frame}, crop_region, timers=None) -> {(b, t): list[bool]} when it has
+    one; timers is a dict of stage seconds it may add to.  The table has
+    at least valid, min_y, min_x, max_y and max_x.
+    export_segments_dir: when set (--export), each frame's segment overlay
+    and crop PNGs are written there.
     checkpoint_path: when set, the tracker state and the frame cursor are
     written there every checkpoint_interval_batches batches, and a
     checkpoint already there resumes the run (the source must support
@@ -96,12 +160,9 @@ def run_video(
         raise ValueError(f"tracker_impl must be 'host' or 'device', got {tracker_impl!r}")
     if mesh is not None:
         _not_ported("mesh", "6, mesh")
-    if segment_filter is not None:
-        _not_ported("segment_filter", "4, --classify")
     if profile_dir is not None:
         _not_ported("profile_dir", "2, profiling")
-    if export_segments_dir is not None:
-        _not_ported("export_segments_dir", "4, --classify and --export")
+    batchable = segment_filter is not None and hasattr(segment_filter, "batch_call")
     device = torch.device(device)
     if device.type == "cuda":
         pin_numerics()
@@ -121,6 +182,10 @@ def run_video(
             "declares non-uniform timestamps, use tracker_impl='host'"
         )
     dev_state = empty_state(cfg.max_tracks, device) if use_device_tracker else None
+    needs_frames = segment_filter is not None or export_segments_dir is not None
+    # the fused classify path reads a batch's events back one batch late,
+    # so its device work overlaps the next batch's host work
+    deferred = [None]
 
     if checkpoint_path is not None:
         src_info = checkpoint.source_fingerprint(source)
@@ -143,10 +208,14 @@ def run_video(
 
     def track_on_device(table, wins):
         """One track_window launch over the batch's compacted tables:
-        (event buffer, (B, T) overflow flags, the state after the batch)."""
+        (event buffer, (B, T) overflow flags, the state after the batch,
+        None).  With a segment filter or the export the scan waits for
+        consume, and this returns ("frames", the scan's inputs, the started
+        read-back of the compacted valid and bbox planes)."""
         nonlocal dev_state
         B, T = table.valid.shape[:2]
-        cy, cx, kvalid, overflow = compact_tables(table, cfg.max_tracks)
+        compacted = compact_tables(table, cfg.max_tracks, with_bbox=needs_frames)
+        cy, cx, kvalid, overflow = compacted[:4]
         fns = torch.from_numpy(np.concatenate(
             [np.asarray(w[1], np.int32) for w in wins]
             + [np.full(T, -1, np.int32)] * (B - len(wins))))
@@ -160,20 +229,88 @@ def run_video(
         real = (fns >= 0).reshape(B, T)
         kvalid = kvalid & real[..., None]
         overflow = overflow & real
+        if needs_frames:
+            planes = torch.stack((kvalid.to(torch.int32),) + compacted[4])
+            return ("frames", cy, cx, kvalid, overflow, fns, active,
+                    _start_readback(planes))
         dev_state, events = track_window(
             dev_state, roi_dev, cy.reshape(B * T, -1), cx.reshape(B * T, -1),
             kvalid.reshape(B * T, -1), fns, cfg, active=active,
         )
         # the state is kept with the batch, so that a checkpoint written when
         # the batch is consumed pairs it with the batch's cursor
-        return events, overflow, dev_state
+        return events, overflow, dev_state, None
 
-    def drain_device_events(events, overflow) -> None:
+    def frames_on_device(wins, cy, cx, kvalid, overflow, fns, active, readback):
+        """The keep-mask, the export and the tracking scan of one batch on
+        the device tracker: (event buffer, overflow flags, state after,
+        n_kept or None), n_kept being the fused path's kept count on the
+        device."""
+        nonlocal dev_state
+        t0 = time.perf_counter()
+        planes = _finish_readback(readback)
+        metrics.stage_seconds["classify_readback"] = (
+            metrics.stage_seconds.get("classify_readback", 0.0) + time.perf_counter() - t0)
+        view = _CompactTableView(planes[0].astype(bool), *planes[1:])
+        B, T, K = view.valid.shape
+        frames_by_bt = {(b, t): wins[b][0][t] for b in range(len(wins)) for t in range(T)
+                        if view.valid[b, t].any()}
+        fused = None
+        # the export needs the keep-mask on the host, which the fused path
+        # never reads back
+        if (export_segments_dir is None and cfg.classify_fused and frames_by_bt
+                and getattr(segment_filter, "supports_fused", False)):
+            fused = pack_fused(segment_filter, view, frames_by_bt, crop_region,
+                               timers=metrics.stage_seconds)
+        if fused is not None:
+            canv, meta, mx = fused
+            coeff = segment_filter._coeff_table(mx)
+            t0 = time.perf_counter()
+            dev_state, events, n_kept = classify_track_fused(
+                segment_filter.params, coeff, canv, meta, dev_state, roi_dev,
+                cy, cx, kvalid, fns, active, cfg)
+            metrics.stage_seconds["classify_device"] = (
+                metrics.stage_seconds.get("classify_device", 0.0) + time.perf_counter() - t0)
+            return events, overflow, dev_state, n_kept
+        keep_masks = {}
+        if segment_filter is not None and frames_by_bt:
+            if batchable:
+                keep_masks = segment_filter.batch_call(view, frames_by_bt, crop_region,
+                                                       timers=metrics.stage_seconds)
+            else:
+                keep_masks = {key: segment_filter(view, key, frame, crop_region)
+                              for key, frame in frames_by_bt.items()}
+            keep = np.ones((B, T, K), bool)
+            for (b, t), kl in keep_masks.items():
+                metrics.segments_total += sum(1 for k in kl if k)
+                keep[b, t, : len(kl[:K])] = kl[:K]
+            kvalid = kvalid & upload([keep], device)[0]
+        if export_segments_dir is not None:
+            for b, (frames, numbers, _) in enumerate(wins):
+                for t in range(T):
+                    if numbers[t] < 0:
+                        continue
+                    # the compacted slots hold labels 1..N at 0..N-1, so an
+                    # all-true mask gives the PNGs the host tracker's names
+                    keep = (keep_masks.get((b, t), []) if segment_filter is not None
+                            else [True] * int(view.valid[b, t].sum()))
+                    export_frame_segments(
+                        frames[t], view, (b, t), numbers[t], crop_region,
+                        export_segments_dir, Path(source.filepath).stem, cfg, keep=keep)
+        # the unfused path, and a batch without segments, track here
+        dev_state, events = track_window(
+            dev_state, roi_dev, cy.reshape(B * T, K), cx.reshape(B * T, K),
+            kvalid.reshape(B * T, K), fns, cfg, active=active)
+        return events, overflow, dev_state, None
+
+    def drain_device_events(events, overflow, n_kept=None) -> None:
         """Read back one batch's event buffer and append its events.  The
         scan carries frame numbers only; the port's stamp of a frame is its
         frame number, so the events equal the host tracker's."""
         ev = events.to_numpy()
         metrics.track_overflows += int(overflow.sum())
+        if n_kept is not None:
+            metrics.segments_total += int(n_kept)
         if ev["overflow"]:
             raise RuntimeError("device tracker event buffer overflow")
         for i in range(int(ev["count"])):
@@ -191,22 +328,53 @@ def run_video(
         metrics.stage_start("consume")
         iters = iters.cpu().numpy()
         if on_device is not None:
-            events, overflow, state_after = on_device
-            drain_device_events(events, overflow.cpu().numpy())
+            if on_device[0] == "frames":
+                on_device = frames_on_device(wins, *on_device[1:])
+            events, overflow, state_after, n_kept = on_device
+            # a deferred batch is the one before this: drain it first, so
+            # that events stay in order
+            if deferred[0] is not None:
+                drain_device_events(*deferred[0])
+                deferred[0] = None
+            if n_kept is not None:
+                deferred[0] = (events, overflow, n_kept)
+            else:
+                drain_device_events(events, overflow)
             for b, (_, numbers, _) in enumerate(wins):
                 ialm_iters.append(int(iters[b]))
                 frames_processed += sum(1 for n in numbers if n >= 0)
                 metrics.windows += 1
         else:
             table = table.map(lambda a: a.cpu()).map(torch.Tensor.numpy)
-            for b, (_, numbers, stamps) in enumerate(wins):
+            keep_masks = None
+            if batchable:
+                # null frames carry no segments (below), so they go unclassified
+                frames_by_bt = {(b, t): frames[t] for b, (frames, numbers, _) in enumerate(wins)
+                                for t in range(cfg.window_size)
+                                if numbers[t] >= 0 and table.valid[b, t].any()}
+                keep_masks = segment_filter.batch_call(table, frames_by_bt, crop_region,
+                                                       timers=metrics.stage_seconds)
+            for b, (frames, numbers, stamps) in enumerate(wins):
                 ialm_iters.append(int(iters[b]))
                 for t in range(cfg.window_size):
                     # Null frames (fn = -1) yield no segments: their RPCA output
                     # is null-space noise whose direction is solver-dependent
                     # (PARITY deviation 11).  The tracker still steps.
-                    centroids = [] if numbers[t] < 0 else frame_centroids(table, b, t)
+                    null_frame = numbers[t] < 0
+                    centroids = [] if null_frame else frame_centroids(table, b, t)
+                    keep = None
+                    if not null_frame and keep_masks is not None:
+                        keep = keep_masks.get((b, t), [])
+                    elif not null_frame and segment_filter is not None:
+                        keep = segment_filter(table, (b, t), frames[t], crop_region)
+                    if keep is not None:
+                        centroids = [c for c, k in zip(centroids, keep) if k]
                     tracker.step(centroids, numbers[t], stamps[t])
+                    if export_segments_dir is not None and not null_frame:
+                        # after the filter: a rejected segment writes no PNG
+                        export_frame_segments(
+                            frames[t], table, (b, t), numbers[t], crop_region,
+                            export_segments_dir, Path(source.filepath).stem, cfg, keep=keep)
                     metrics.segments_total += len(centroids)
                     frames_processed += numbers[t] >= 0
                 metrics.windows += 1
@@ -215,6 +383,11 @@ def run_video(
         if checkpoint_path is not None and metrics.batches % checkpoint_interval_batches == 0:
             src_info = checkpoint.source_fingerprint(source)
             if on_device is not None:
+                # the checkpoint pairs this batch's cursor with this batch's
+                # state, so a deferred event buffer must land first
+                if deferred[0] is not None:
+                    drain_device_events(*deferred[0])
+                    deferred[0] = None
                 checkpoint.save_checkpoint_device(
                     checkpoint_path, cursor[0], frames_processed, state_after,
                     tracker.events, source.fps, source_info=src_info)
@@ -227,7 +400,7 @@ def run_video(
             status_cb(frames_processed, source.total_frames)
 
     prefetcher = WindowPrefetcher(source, crop_region, device, cfg,
-                                  initial_planned=frames_processed)
+                                  initial_planned=frames_processed, keep_frames=needs_frames)
     try:
         # dispatch batch k+1 before consuming batch k
         pending = None
@@ -239,7 +412,7 @@ def run_video(
             if batch is not None:
                 gray, wins, cursor = batch
                 metrics.stage_start("localize")
-                table, iters = localize_windows_gray(gray, cfg)
+                table, iters = localize_windows_gray(gray, cfg, with_bbox=needs_frames)
                 metrics.stage_stop("localize")
                 on_device = None
                 if use_device_tracker:
@@ -254,6 +427,8 @@ def run_video(
                 break
     finally:
         prefetcher.close()
+    if deferred[0] is not None:
+        drain_device_events(*deferred[0])
 
     events = tracker.events
     metrics.events = len(events)

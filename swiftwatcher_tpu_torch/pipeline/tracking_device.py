@@ -401,10 +401,12 @@ def track_window(
 track_window.launches = 0
 
 
-def compact_tables(table, K: int):
+def compact_tables(table, K: int, with_bbox: bool = False):
     """RegionTable (..., 256) -> the first K valid slots in ascending label
     order: (cys, cxs, valids, overflow) of shapes (..., K), (..., K), (..., K)
-    and (...).
+    and (...).  with_bbox also returns (min_y, min_x, max_y, max_x) gathered
+    in the same order, so a slot's crop lines up with its keep bit (the
+    classifier reads these back instead of the 256-slot table).
 
     The valid-first stable order is a cumsum-rank scatter: valid slot i
     lands at rank(valid)_i - 1, invalid slot i at n_valid + rank(invalid)_i
@@ -424,4 +426,8 @@ def compact_tables(table, K: int):
     area = take(table.area).clamp_min(1).to(torch.float32)
     cy = take(table.sum_y).to(torch.float32) / area
     cx = take(table.sum_x).to(torch.float32) / area
-    return cy, cx, take(valid), valid.sum(dim=-1) > K
+    out = (cy, cx, take(valid), valid.sum(dim=-1) > K)
+    if with_bbox:
+        return out + (tuple(take(a) for a in (table.min_y, table.min_x, table.max_y,
+                                              table.max_x)),)
+    return out

@@ -24,8 +24,13 @@ from ..ops.rpca import rpca_motion_window_batched
 def localize_windows_gray(
     gray: torch.Tensor,
     cfg: PipelineConfig = DEFAULT_CONFIG,
+    with_bbox: bool = False,
 ) -> Tuple[RegionTable, torch.Tensor]:
-    """(B, T, H, W) uint8 gray -> (RegionTable of (B, T, 256), (B,) iters)."""
+    """(B, T, H, W) uint8 gray -> (RegionTable of (B, T, 256), (B,) iters).
+
+    with_bbox: also fill the tables' bbox fields, which the classifier's
+    crops and the segment export need; tracking and events read centroids
+    only, so they stay zero otherwise."""
     if cfg.stabilize_max_shift > 0:
         raise NotImplementedError(
             "stabilize_max_shift > 0 is not ported yet "
@@ -36,6 +41,5 @@ def localize_windows_gray(
     filtered = apply_postfilter(motion.reshape(B * T, H, W), cfg)
     labels, _ = label_components(filtered > 0, cfg.ccl_max_iters)
     labels_u8 = wrap_labels_uint8(labels, cfg.label_modulus)
-    # tracking and events read centroids only
-    table = region_tables(labels_u8, with_bbox=False)
+    table = region_tables(labels_u8, with_bbox=with_bbox)
     return table.map(lambda a: a.reshape(B, T, *a.shape[1:])), iters

@@ -27,9 +27,11 @@ def parse_args(argv=None):
     parser.add_argument("--start", type=int, default=0)
     parser.add_argument("--end", type=int, default=-1)
     parser.add_argument("--classify", action="store_true",
-                        help="not ported yet (ROADMAP.md section 1 item 4)")
+                        help="drop the segments the SqueezeNet filter rejects "
+                        "before tracking (the shipped weights)")
     parser.add_argument("--export", action="store_true",
-                        help="not ported yet (ROADMAP.md section 1 item 4)")
+                        help="write each segment's overlay and crop PNGs under "
+                        "<video dir>/<stem>/segments, on either tracker")
     parser.add_argument(
         "--parallel-videos", type=int, default=1,
         help="process up to N videos concurrently; only 1 is ported "

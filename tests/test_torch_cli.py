@@ -92,8 +92,6 @@ def test_cli_vs_jax_counts_and_csvs(tmp_path, video, capsys, warm, tracker):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--classify"], "item 4"),
-    (["--export"], "item 4"),
     (["--profile"], "item 2"),
     (["--mesh", "2"], "item 6"),
     (["--parallel-videos", "2"], "item 3"),

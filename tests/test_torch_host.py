@@ -1,6 +1,7 @@
 """The port's own host layer vs the JAX package's: config, geometry, the
-host tracker, timestamps and run metrics give the same results on the same
-inputs.  The port keeps copies of these modules, so these tests are what
+host tracker, timestamps, run metrics and the classifier's host helpers
+(PIL tap weights, canvas packing, bbox expansion) give the same results on
+the same inputs.  The port keeps copies of these modules, so these tests are what
 holds the copies to the originals."""
 
 import dataclasses
@@ -12,10 +13,13 @@ from swiftwatcher_tpu import config as jax_config
 from swiftwatcher_tpu import geometry as jax_geometry
 from swiftwatcher_tpu.io import export as jax_export
 from swiftwatcher_tpu.io import readers as jax_readers
+from swiftwatcher_tpu.models import classifier as jax_classifier
+from swiftwatcher_tpu.models import preprocess as jax_preprocess
 from swiftwatcher_tpu.pipeline import tracking as jax_tracking
 from swiftwatcher_tpu.utils import metrics as jax_metrics
 from swiftwatcher_tpu_torch import config, geometry
 from swiftwatcher_tpu_torch.io import export
+from swiftwatcher_tpu_torch.models import classifier, preprocess
 from swiftwatcher_tpu_torch.pipeline import tracking
 from swiftwatcher_tpu_torch.utils import metrics
 
@@ -126,3 +130,26 @@ def test_run_metrics_summary_keys():
     assert a.keys() == b.keys()
     for k in ("frames_processed", "ialm_iters_mean", "ialm_iters_max", "segments_per_frame"):
         assert a[k] == b[k]
+
+
+@pytest.mark.parametrize("max_in, out", [(64, 24), (32, 24), (64, 7), (5, 24)])
+def test_resize_coeffs_agree(max_in, out):
+    sizes = np.arange(1, max_in + 1, dtype=np.int32)
+    ours = preprocess.resize_coeffs(sizes, max_in, out)
+    assert ours.dtype == np.int32 and ours.shape == (max_in, out, max_in)
+    np.testing.assert_array_equal(ours, jax_preprocess.resize_coeffs(sizes, max_in, out))
+
+
+def test_pack_canvases_agree(rng):
+    imgs = [rng.integers(0, 256, (int(h), int(w), 3), np.uint8)
+            for h, w in rng.integers(1, 33, (9, 2))]
+    for a, b in zip(preprocess.pack_canvases(imgs, 32), jax_preprocess.pack_canvases(imgs, 32)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_expand_bbox_agrees(rng):
+    for _ in range(100):
+        y1, x1 = (int(v) for v in rng.integers(-3, 100, 2))
+        box = [y1, x1, y1 + int(rng.integers(0, 30)), x1 + int(rng.integers(0, 30))]
+        assert classifier.expand_bbox(box, (24, 24)) == jax_classifier.expand_bbox(box, (24, 24))

@@ -42,6 +42,14 @@ print("ok", len({modules!r}))
 """
 
 
+def test_classify_and_export_modules_are_checked():
+    """The --classify and --export modules are among those the probe below
+    imports with PIL and cv2 blocked: both are imported inside functions."""
+    for m in ("models.squeezenet", "models.preprocess", "models.classifier",
+              "pipeline.classify_fused", "io.segments_export"):
+        assert f"swiftwatcher_tpu_torch.{m}" in PORT_MODULES
+
+
 def test_port_and_chip_smoke_import_without_blocked_packages():
     modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ["chip_smoke"]
     code = _PROBE.format(blocked=BLOCKED, modules=modules)

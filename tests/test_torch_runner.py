@@ -95,10 +95,7 @@ def test_exported_csvs_byte_equal(tmp_path):
     assert (ours.export_dir / "run_manifest.json").is_file()
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"segment_filter": object()},
-    {"profile_dir": "prof"}, {"export_segments_dir": "seg"},
-])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"profile_dir": "prof"}])
 def test_unported_options_raise(kw):
     video = make_video(seed=0, n_frames=21, n_entering=0, n_crossing=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -154,9 +151,9 @@ def test_track_overflows_count_real_frames_only(monkeypatch):
     recorded = []
     real = runner_mod.compact_tables
 
-    def recording(table, K):
+    def recording(table, K, **kw):
         recorded.append(table.valid.sum(-1))
-        return real(table, K)
+        return real(table, K, **kw)
 
     monkeypatch.setattr(runner_mod, "compact_tables", recording)
     video = make_video(seed=0, n_frames=50, n_entering=2, n_crossing=1, n_vanishing=1)
