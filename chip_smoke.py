@@ -75,7 +75,30 @@ path (`run_video`) end to end:
      seconds, peak device memory, peak host RSS and the classifier's upload
      bytes; and the CLI with --classify --export on the card with the
      device tracker (T1 launched): six CSVs and the PNGs byte-equal to the
-     host tracker's on the CPU.
+     host tracker's on the CPU;
+ 13. real containers at 1080p: the close-pass clip (504 frames, a batch and a
+     half; 1008 would add about 25 s to the script) written as
+     an MJPG AVI and an mp4v MP4 by cv2, and as an H.264 MP4 by the port's
+     write_test_video where libx264 is built; the CLI with its device
+     tracker on each file through `auto` and every decode backend that
+     engages there (native, parallel, av, cv2, forced by patching the
+     CLI's open_source; auto and cv2 must run on every file, native and av
+     wherever their library is built, parallel wherever cv2's seek is
+     exact), printing source.backend, decode_workers, frames/s
+     (and the source's own frames/s, read alone), the
+     prefetch_wait/localize/consume seconds and the launches of K1, K2
+     and T1; the six CSVs byte-equal across one file's backends; and a
+     checkpoint resume on the parallel MP4 equal to the full run;
+ 14. the flags: --profile on the small scene (trace.json names the C
+     launchers of K1, K2 and T1 and, where the profiler traced the card,
+     holds their kernels; the manifest has the localize and track_scan
+     device seconds) and a profiled 1080p run beside phase 11's frames/s;
+     --parallel-videos 2 on two clips, also with --profile (a trace from
+     the run that held the profiler, device times from both), CSVs
+     byte-equal to two sequential runs; stabilize_window (J = 3) on one bench batch shaken by
+     planted integer shifts, card == CPU bit for bit; --accuracy-pack on a
+     jittered small scene, card == CPU; opening an .h5 without h5py raises
+     an ImportError that names h5py and the alternatives.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -98,9 +121,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -992,6 +1017,15 @@ def run() -> None:
 
     phase12(np, torch, dev, cfg, card, bench, gray_dev, idx, small, r11, secs11, wrappers,
             n_frames)
+    # half the clip: the script stays within 1.5 times its time before phase 13
+    for n, phase, args in (
+            (13, phase13, (np, torch, dev, cfg, card, bench, n_frames // 2, wrappers, r11,
+                           secs11)),
+            (14, phase14, (np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11,
+                           secs11))):
+        t0 = time.perf_counter()
+        phase(*args)
+        print(f"phase {n} took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # every kernel's bound at the inputs timed above
     hw = H * W
@@ -1369,6 +1403,350 @@ def phase12(np, torch, dev, cfg, card, bench, gray_dev, idx, small, r11, secs11,
         print(f"phase 12 CLI --classify --export on the card, device tracker ({t1_export} T1 "
               f"launches): six CSVs and {len(pngs['cpu'])} PNGs byte-equal to the host "
               f"tracker's on the CPU", flush=True)
+
+
+# The decode backends of each container, in the order `auto` tries them.
+BACKENDS = {"avi": ("native", "parallel", "cv2"), "mp4": ("parallel", "av", "cv2"),
+            "h264": ("parallel", "av", "cv2")}
+
+
+class CliRuns:
+    """The CLI with its decode backend forced (`open_source` patched to open
+    containers with `backend`; "auto" leaves the CLI's own), recording what
+    each run_video call saw: the source's backend and decode workers, the
+    run's wall time and its result."""
+
+    def __init__(self, torch, main_mod, video_source, backend: str):
+        self.torch, self.main_mod, self.runs = torch, main_mod, []
+        self.video_source, self.backend = video_source, backend
+
+    def __enter__(self):
+        self.real = self.main_mod.run_video, self.main_mod.open_source
+        real_run, real_open = self.real
+
+        def recorded(source, *a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = real_run(source, *a, **k)
+            self.torch.cuda.synchronize()
+            self.runs.append((source.backend, source.decode_workers,
+                              time.perf_counter() - t0, r))
+            return r
+
+        def opened(path, start=0, end=0):
+            return self.video_source(path, end, backend=self.backend)
+
+        self.main_mod.run_video = recorded
+        if self.backend != "auto":
+            self.main_mod.open_source = opened
+        return self
+
+    def __exit__(self, *exc):
+        self.main_mod.run_video, self.main_mod.open_source = self.real
+
+
+def write_containers(np, bench, n_frames, tmp: Path, ui, native_av):
+    """The close-pass clip as an MJPG AVI and an mp4v MP4 (cv2), and as an
+    H.264 MP4 (libx264 through write_test_video) where it is built, each
+    with its attributes.json: {kind: path}; the seconds each took."""
+    from swiftwatcher_tpu_torch.io.synthetic import write_container
+
+    idx = np.arange(n_frames) % len(bench.frames)
+    out, secs = {}, {}
+    for kind, name, fourcc in (("avi", "clip_mjpg.avi", "MJPG"), ("mp4", "clip_mp4v.mp4", "mp4v")):
+        t0 = time.perf_counter()
+        path = tmp / name
+        check(write_container(path, (bench.frames[i] for i in idx), bench.fps, fourcc),
+              f"cv2 cannot write {fourcc}")
+        out[kind], secs[kind] = path, time.perf_counter() - t0
+    if native_av.is_available():
+        t0 = time.perf_counter()
+        path = tmp / "clip_h264.mp4"
+        if native_av.write_test_video(path, bench.frames[idx], bench.fps, "libx264"):
+            out["h264"], secs["h264"] = path, time.perf_counter() - t0
+    for path in out.values():
+        ui.save_corners_to_file(path, bench.corners)
+    return out, secs
+
+
+def phase13(np, torch, dev, cfg, card, bench, n_frames, wrappers, r11, secs11) -> None:
+    """Real containers at 1080p: the close-pass clip written as an MJPG AVI
+    and as MP4s, the CLI (device tracker) on each through every decode
+    backend that engages, the six CSVs byte-equal across one file's
+    backends, and a checkpoint resume on the parallel MP4."""
+    import swiftwatcher_tpu_torch.__main__ as main_mod
+    from swiftwatcher_tpu_torch import ui
+    from swiftwatcher_tpu_torch.io import native, native_av
+    from swiftwatcher_tpu_torch.io.parallel_decode import probe_seek_accuracy
+    from swiftwatcher_tpu_torch.io.source import VideoFileSource
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+
+    libs = {"native": native.is_available(), "av": native_av.is_available()}
+    print(f"phase 13 host decoders built here: framepump (native, libjpeg) {libs['native']}, "
+          f"avpump (av, libav) {libs['av']}; decode workers {os.cpu_count()} (cores)", flush=True)
+    k_names = ("fused_motion_filter", "label_rank_fused", "track_window")
+    with tempfile.TemporaryDirectory() as tmp:
+        files, wsecs = write_containers(np, bench, n_frames, Path(tmp), ui, native_av)
+        print(f"phase 13 wrote {n_frames} frames at {bench.frames.shape[2]}x"
+              f"{bench.frames.shape[1]}: " + ", ".join(
+            f"{k} {files[k].name} {files[k].stat().st_size / 2**20:.1f} MiB in {wsecs[k]:.1f} s"
+            for k in files) + ("" if "h264" in files else
+                               "; no H.264 MP4 (write_test_video has no libx264 here)"),
+            flush=True)
+        full_parallel = None
+        for kind, path in files.items():
+            # where each named backend must engage: native and av wherever
+            # their library is built, parallel wherever cv2's seek is exact
+            # (the probe VideoFileSource runs); cv2 always.  auto takes the
+            # first of them, in BACKENDS' order
+            must = {b: m for b, m in {"parallel": probe_seek_accuracy(path, n_frames),
+                                      **libs}.items() if b in BACKENDS[kind]}
+            want_auto = next((b for b in BACKENDS[kind] if must.get(b)), "cv2")
+            csvs = {}
+            for backend in ("auto",) + BACKENDS[kind]:
+                if backend in csvs:
+                    continue                # auto took it already
+                if backend in must:
+                    # a backend asked for by name raises where it cannot engage
+                    try:
+                        VideoFileSource(path, backend=backend).close()
+                    except ValueError as e:
+                        check(not must[backend], f"{kind}: backend {backend} did not engage "
+                              f"where it must: {e}")
+                        print(f"phase 13 {kind}: backend {backend} not run: {e}", flush=True)
+                        continue
+                for k in k_names:
+                    wrappers[k].launches = 0
+                with CliRuns(torch, main_mod, VideoFileSource, backend) as rec, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    rc = main_mod.main(["--filepaths", str(path)])
+                check(rc == 0, f"CLI on {path.name} ({backend}) exited {rc}")
+                got, workers, secs, r = rec.runs[0]
+                if backend == "auto":
+                    check(got == want_auto, f"{kind}: auto took {got}, not {want_auto} "
+                          f"(engageable: {must})")
+                else:
+                    check(got == backend, f"{kind}: asked for {backend}, got {got}")
+                launches = {k: wrappers[k].launches for k in k_names}
+                st = r.metrics.stage_seconds
+                # the source alone: the frames the prefetch worker reads
+                src = VideoFileSource(path, backend=got)
+                t0 = time.perf_counter()
+                for _ in range(n_frames):
+                    src.get_frame()
+                decode_s = time.perf_counter() - t0
+                src.close()
+                print(f"phase 13 CLI {kind} backend {backend}: source.backend {got}, "
+                      f"decode_workers {workers}, {r.frames_processed} frames in {secs:.2f} s = "
+                      f"{r.frames_processed / secs:.1f} frames/s (phase 11, frames in memory: "
+                      f"{r11.frames_processed / secs11:.1f}; the source alone: "
+                      f"{n_frames / decode_s:.1f}) [{card}], prefetch_wait "
+                      f"{st.get('prefetch_wait', 0):.3f} s, localize {st.get('localize', 0):.3f} "
+                      f"s, consume {st.get('consume', 0):.3f} s, {r.total_predicted} predicted / "
+                      f"{r.total_rejected} rejected, read_errors {r.metrics.read_errors}, "
+                      f"launches {launches}", flush=True)
+                check(r.frames_processed == n_frames, f"{kind} {got}: wrong frame count")
+                check(launches["track_window"] == r.metrics.batches > 0
+                      and launches["fused_motion_filter"] > 0
+                      and launches["label_rank_fused"] > 0,
+                      f"{kind} {got}: K1, K2 or T1 not launched")
+                out_dir = path.parent / path.stem
+                csvs[got] = {p.name: p.read_bytes() for p in sorted(out_dir.glob("*.csv"))}
+                check(len(csvs[got]) == 6, f"{kind} {got}: want six CSVs")
+                if kind == "mp4" and got == "parallel":
+                    full_parallel = r
+            check("cv2" in csvs and all(b in csvs for b, m in must.items() if m),
+                  f"{kind}: ran {sorted(csvs)}, engageable {must}")
+            first = next(iter(csvs.values()))
+            check(all(c == first for c in csvs.values()),
+                  f"{kind}: the CSVs differ between backends {sorted(csvs)}")
+            print(f"phase 13 {kind}: six CSVs byte-equal across backends {sorted(csvs)}",
+                  flush=True)
+        check(full_parallel is not None, "the MP4's parallel backend did not run")
+
+        # resume: cut at half the clip with a checkpoint every batch, then
+        # resume over the whole file on the parallel backend
+        ck = Path(tmp) / "state.ckpt"
+        src = VideoFileSource(files["mp4"], backend="parallel")
+        src.end_frame = src.total_frames = n_frames // 2
+        run_video(src, bench.corners, cfg, dev, tracker_impl="device",
+                  checkpoint_path=ck, checkpoint_interval_batches=1)
+        src.close()
+        src = VideoFileSource(files["mp4"], backend="parallel")
+        resumed = run_video(src, bench.corners, cfg, dev, tracker_impl="device",
+                            checkpoint_path=ck)
+        src.close()
+
+        def ev(r):
+            return [(e.frame_number, e.first_centroid, e.last_centroid) for e in r.events]
+
+        check(ev(resumed) == ev(full_parallel) and resumed.total_predicted
+              == full_parallel.total_predicted, "resumed parallel MP4 run differs from the full run")
+        print(f"phase 13 checkpoint resume on the parallel MP4 (cut at frame {n_frames // 2}): "
+              f"{len(resumed.events)} events, equal to the full run's", flush=True)
+
+
+def jittered(np, frames, rng, J: int):
+    """Each frame moved by a random integer camera offset within +-J, its
+    edges repeated: a shaking camera."""
+    out = np.empty_like(frames)
+    for t, f in enumerate(frames):
+        dy, dx = (int(v) for v in rng.integers(-J, J + 1, 2))
+        pad = np.pad(f, ((J, J), (J, J), (0, 0)), mode="edge")
+        out[t] = pad[J + dy : J + dy + f.shape[0], J + dx : J + dx + f.shape[1]]
+    return out
+
+
+def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, secs11) -> None:
+    """The flags: --profile, --parallel-videos 2, stabilize_window card ==
+    CPU, --accuracy-pack card == CPU, and the .h5 error without h5py."""
+    from swiftwatcher_tpu_torch import ui
+    from swiftwatcher_tpu_torch.__main__ import main as cli_main
+    from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
+    from swiftwatcher_tpu_torch.io.source import LoopingArraySource, open_source
+    from swiftwatcher_tpu_torch.io.synthetic import make_video
+    from swiftwatcher_tpu_torch.ops.color import bgr_to_gray_host
+    from swiftwatcher_tpu_torch.ops.stabilize import stabilize_window
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+
+    def save_clip(tmp, name, frames, corners):
+        """A .npy clip with its attributes.json, for the CLI."""
+        clip = Path(tmp) / name
+        clip.parent.mkdir(parents=True, exist_ok=True)
+        np.save(clip, frames)
+        ui.save_corners_to_file(clip, corners)
+        return clip
+
+    def csvs(d):
+        return {p.name: p.read_bytes() for p in sorted(Path(d).glob("*.csv"))}
+
+    # 14.1 --profile on the small scene; then the profiled 1080p run
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = save_clip(tmp, "clip.npy", small.frames, small.corners)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli_main(["--filepaths", str(clip), "--profile"])
+        check(rc == 0, f"CLI --profile exited {rc}")
+        prof = clip.parent / "clip" / "profile"
+        trace = json.loads((prof / "trace.json").read_text())
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        entries = ("swt_fused_motion", "swt_label_rank_fused", "swt_track_scan")
+        check(all(n in names for n in entries), f"the trace lacks one of {entries}")
+        # the kernels of K1, K2 and T1, where the profiler traced the card
+        # (CUPTI) at all
+        device_events = [e.get("name", "") for e in trace["traceEvents"]
+                         if e.get("cat") == "kernel"]
+        kernels = {k: sum(k in n for n in device_events)
+                   for k in ("fused_motion_kernel", "label_tiles_kernel", "track_scan_kernel")}
+        check(not device_events or all(kernels.values()),
+              f"the trace has {len(device_events)} kernels but not each of {kernels}")
+        manifest = json.loads((clip.parent / "clip" / "run_manifest.json").read_text())
+        dss = manifest["device_stage_seconds"]
+        check({"localize", "track_scan"} <= set(dss), f"manifest device stages {dss}")
+        print(f"phase 14 CLI --profile: trace.json {(prof / 'trace.json').stat().st_size / 2**20:.2f}"
+              f" MiB names {', '.join(entries)}; {len(device_events)} CUDA kernels in it, "
+              f"launches of ours {kernels}; "
+              f"device_stage_seconds {dss}", flush=True)
+        wrappers["track_window"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = run_video(LoopingArraySource(bench.frames, total=n_frames, fps=bench.fps),
+                       bench.corners, cfg, dev, tracker_impl="device",
+                       profile_dir=Path(tmp) / "prof1080")
+        torch.cuda.synchronize()
+        sp = time.perf_counter() - t0
+        check([e.frame_number for e in rp.events] == [e.frame_number for e in r11.events],
+              "profiled 1080p run: events differ from phase 11's")
+        print(f"phase 14 run_video 1080p profiled, device tracker: {rp.frames_processed / sp:.1f} "
+              f"frames/s (phase 11 unprofiled: {r11.frames_processed / secs11:.1f}) [{card}], "
+              f"device_stage_seconds "
+              f"{ {k: round(v, 4) for k, v in rp.metrics.device_stage_seconds.items()} }, "
+              f"events equal phase 11's", flush=True)
+
+    # 14.2 --parallel-videos 2, also with --profile, vs two sequential runs,
+    # on the card
+    second = make_video(seed=1, n_frames=50, n_entering=2, n_crossing=1, n_vanishing=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for mode, flags in (("parallel", ["--parallel-videos", "2"]),
+                            ("profiled", ["--parallel-videos", "2", "--profile"]),
+                            ("sequential", [])):
+            clips = [save_clip(tmp, f"{mode}/clip{i}.npy", v.frames, v.corners)
+                     for i, v in enumerate((small, second))]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli_main(["--filepaths", *map(str, clips), *flags])
+            check(rc == 0, f"CLI {mode} exited {rc}")
+            out[mode] = ([csvs(c.parent / c.stem) for c in clips], time.perf_counter() - t0)
+        check(all(len(c) == 6 for c in out["sequential"][0])
+              and out["parallel"][0] == out["profiled"][0] == out["sequential"][0],
+              "--parallel-videos 2: CSVs differ from sequential runs")
+        # the profiled runs: one traces at a time, each has its device times
+        traced = []
+        for i in range(2):
+            d = Path(tmp) / "profiled" / f"clip{i}"
+            dss = json.loads((d / "run_manifest.json").read_text())["device_stage_seconds"]
+            check({"localize", "track_scan"} <= set(dss), f"profiled clip{i}: device stages {dss}")
+            if (d / "profile" / "trace.json").exists():
+                trace = json.loads((d / "profile" / "trace.json").read_text())
+                names = {e.get("name", "") for e in trace["traceEvents"]}
+                check("swt_track_scan" in names, f"profiled clip{i}: trace lacks T1's launcher")
+                traced.append(f"clip{i}")
+        check(bool(traced), "--parallel-videos 2 --profile: no run wrote a trace")
+        print(f"phase 14 CLI --parallel-videos 2 on two clips: CSVs byte-equal to two sequential "
+              f"runs ({out['parallel'][1]:.2f} s vs {out['sequential'][1]:.2f} s) [{card}]; with "
+              f"--profile too ({out['profiled'][1]:.2f} s), traces of {traced}, device times of "
+              f"both", flush=True)
+
+    # 14.3 stabilize_window on one bench batch shaken by planted shifts, J=3
+    # (each frame's crop taken at a planted offset from the chimney crop)
+    J = 3
+    B, T = cfg.batch_windows, cfg.window_size
+    (x1, y1), (x2, y2) = crop_region_from_corners(bench.corners, cfg)
+    planted = np.random.default_rng(14).integers(-J, J + 1, size=(B * T, 2))
+    idx = np.arange(B * T) % len(bench.frames)
+    shaken = np.stack([bgr_to_gray_host(bench.frames[i, y1 + dy : y2 + dy, x1 + dx : x2 + dx])
+                       for i, (dy, dx) in zip(idx, planted)]).reshape(B, T, y2 - y1, x2 - x1)
+    ref = bgr_to_gray_host(bench.frames[0, y1:y2, x1:x2])
+    card_out = stabilize_window(torch.from_numpy(shaken).to(dev), J,
+                                torch.from_numpy(ref).to(dev))
+    cpu_out = stabilize_window(torch.from_numpy(shaken), J, torch.from_numpy(ref))
+    a_err = int((card_out[0].cpu().int() - cpu_out[0].int()).abs().max())
+    s_err = int((card_out[1].cpu() - cpu_out[1]).abs().max())
+    check(a_err == 0 and s_err == 0, "stabilize_window: card differs from the CPU")
+    recovered = int((cpu_out[1].reshape(-1, 2).numpy() == -planted).all(1).sum())
+    shaken_dev, ref_dev = torch.from_numpy(shaken).to(dev), torch.from_numpy(ref).to(dev)
+    stab_ms = time_ms(torch, lambda: stabilize_window(shaken_dev, J, ref_dev), 3, "stabilize")
+    print(f"phase 14 stabilize_window J={J} on {tuple(shaken.shape)}: card == CPU bit for bit "
+          f"(frames and shifts); {recovered} of {B * T} planted shifts recovered exactly; "
+          f"{stab_ms:.3f} ms on the card [{card}]", flush=True)
+
+    # 14.4 --accuracy-pack on the card == on the CPU, on a jittered small scene
+    shake = jittered(np, small.frames, np.random.default_rng(15), 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        got = {}
+        for where in ("cuda", "cpu"):
+            clip = save_clip(tmp, f"{where}/clip.npy", shake, small.corners)
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc = cli_main(["--filepaths", str(clip), "--accuracy-pack", "--device", where])
+            check(rc == 0, f"CLI --accuracy-pack on {where} exited {rc}")
+            got[where] = (csvs(clip.parent / "clip"), text.getvalue())
+        check(len(got["cpu"][0]) == 6 and got["cuda"][0] == got["cpu"][0],
+              "--accuracy-pack: CSVs differ between card and CPU")
+        line = [ln for ln in got["cuda"][1].splitlines() if "predicted" in ln]
+        print(f"phase 14 CLI --accuracy-pack on a jittered small scene (+-2 px): six CSVs "
+              f"byte-equal card vs CPU; {line[-1].strip() if line else 'no events'}", flush=True)
+
+    # 14.5 an .h5 without h5py
+    if importlib.util.find_spec("h5py") is not None:
+        print("phase 14 h5py is installed here: the .h5 error is not exercised", flush=True)
+    else:
+        try:
+            open_source(Path("missing.h5"))
+            check(False, "opening an .h5 without h5py did not raise")
+        except ImportError as e:
+            check("h5py" in str(e) and ".npy" in str(e), f"the .h5 error does not say why: {e}")
+            print(f"phase 14 .h5 without h5py: ImportError: {e}", flush=True)
+
 
 
 def main() -> int:

@@ -1,16 +1,22 @@
 """Console entry point of the port.
 
-    python -m swiftwatcher_tpu_torch --filepaths clip.npy [--classify] [--export]
-        [--set field=value ...] [--device cpu]
+    python -m swiftwatcher_tpu_torch --filepaths night.mp4 [clip.npy cache.h5 ...]
+        [--classify] [--export] [--profile] [--parallel-videos N]
+        [--accuracy-pack] [--set field=value ...] [--device cpu]
 
 Counterpart of swiftwatcher_tpu/__main__.py (reference __main__.py:13-53):
-per video, open a frame source by suffix, read the chimney corners from
-<video dir>/<stem>/attributes.json, count on the device, and write the six
-PREDICTED/REJECTED CSVs next to the video (under --debug, into a versioned
-run directory).  --classify filters segments with the shipped SqueezeNet
-weights (models/segment_classifier.npz); --export writes each segment's
-PNGs under <video dir>/<stem>/segments.  Runs on the card unless --device
-says otherwise.
+per video, open a frame source by suffix (io/source.py: a container
+through the fastest decode backend that engages on it, an HDF5 file, a
+.npy clip), read the chimney corners from <video dir>/<stem>/
+attributes.json (or pick them in a window), count on the device, and
+write the six PREDICTED/REJECTED CSVs next to the video (under --debug,
+into a versioned run directory).  --classify filters segments with the
+shipped SqueezeNet weights (models/segment_classifier.npz); --export
+writes each segment's PNGs under <video dir>/<stem>/segments; --profile
+writes a profiler trace and the run manifest under <video dir>/<stem>/
+profile; --parallel-videos N counts up to N videos at once (without the
+progress line).  With no --filepaths a file dialog asks for them.  Runs on
+the card unless --device says otherwise.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from . import ui
 from .config import ACCURACY_PACK_OVERRIDES, config_with_overrides
 from .device import require_cuda
 from .io.source import open_source
+from .pipeline.multi import run_videos
 from .pipeline.runner import run_video
 
 
@@ -33,10 +40,6 @@ def main(argv=None) -> int:
         # preset first: an explicit --set of the same field wins
         overrides = list(ACCURACY_PACK_OVERRIDES) + overrides
     cfg = config_with_overrides(overrides)
-    if args.parallel_videos > 1:
-        raise NotImplementedError(
-            "--parallel-videos > 1 is not ported yet (ROADMAP.md section 1 item 3)"
-        )
     device = torch.device(args.device)
     if device.type == "cuda":
         require_cuda()
@@ -59,22 +62,28 @@ def main(argv=None) -> int:
         jobs.append((source, corners))
         out_dirs.append(output_dir)
 
-    results = []
+    def kwargs_for(i):
+        return dict(
+            export_dir=out_dirs[i],
+            debug=args.debug,
+            status_cb=ui.frames_processed_status if args.parallel_videos == 1 else None,
+            segment_filter=segment_filter,
+            # the sibling output directory, as the JAX package's CLI does
+            export_segments_dir=(out_dirs[i] / "segments") if args.export else None,
+            tracker_impl=args.tracker,
+            profile_dir=(out_dirs[i] / "profile") if args.profile else None,
+            mesh=args.mesh,
+        )
+
     try:
-        for i, (source, corners) in enumerate(jobs):
-            ui.start_status(filepaths[i].name)
-            results.append(run_video(
-                source, corners, cfg, device,
-                export_dir=out_dirs[i],
-                debug=args.debug,
-                status_cb=ui.frames_processed_status,
-                segment_filter=segment_filter,
-                # the sibling output directory, as the JAX package's CLI does
-                export_segments_dir=(out_dirs[i] / "segments") if args.export else None,
-                tracker_impl=args.tracker,
-                profile_dir=(out_dirs[i] / "profile") if args.profile else None,
-                mesh=args.mesh,
-            ))
+        if args.parallel_videos > 1:
+            results = run_videos(jobs, cfg, device, max_concurrent=args.parallel_videos,
+                                 per_video_kwargs=kwargs_for)
+        else:
+            results = []
+            for i, (source, corners) in enumerate(jobs):
+                ui.start_status(filepaths[i].name)
+                results.append(run_video(source, corners, cfg, device, **kwargs_for(i)))
     finally:
         for source, _ in jobs:
             source.close()

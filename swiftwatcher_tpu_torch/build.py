@@ -1,29 +1,40 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and host decoders.
 
 Each `csrc/<name>.cu` is compiled at first use by `nvcc` into a shared
 library with a plain C interface and loaded with `ctypes`.  Libraries go to
 `build/kernels/` at the root of the checkout, named by a hash of the
 sources and flags, so a changed source is rebuilt and an unchanged one is
-reused.  Nothing here runs at import time.
+reused.  The host decoders (`native/<name>.cpp` at the root of the
+checkout, the libjpeg frame pump and the libav reader) are built the same
+way by g++ into `build/native/`; their hash also covers this host's CPU,
+since they are built for it (`-march=native`).  Each library is built once
+per process, under a lock, so threads that need it first together do not
+build it twice.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+ROOT = Path(__file__).resolve().parent.parent
+BUILD_DIR = ROOT / "build" / "kernels"
+NATIVE_SRC = ROOT / "native"
+NATIVE_BUILD_DIR = ROOT / "build" / "native"
 
 # No fast math and no FMA contraction: the kernels must round every float
 # operation as the plain PyTorch versions do.
@@ -32,6 +43,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# The JAX package's flags for the same host sources (its io/native.py).
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -112,30 +125,101 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`, with argtypes set."""
+_locks_guard = threading.Lock()
+_locks: dict = {}
+_loaded: dict = {}
+
+
+def _once(key, make):
+    """make() the first time `key` is asked for, under a lock of its own;
+    later calls return the same result (None included)."""
+    if key in _loaded:
+        return _loaded[key]
+    with _locks_guard:
+        lock = _locks.setdefault(key, threading.Lock())
+    with lock:
+        if key not in _loaded:
+            _loaded[key] = make()
+        return _loaded[key]
+
+
+def _compile(cmd_head: Sequence[str], cmd_tail: Sequence[str], lib_path: Path, what: str) -> None:
+    """Run `cmd_head -o <tmp> cmd_tail` and move the library into place:
+    another process never loads a half-written file."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run([*cmd_head, "-o", tmp, *cmd_tail], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load_kernel_library(name: str) -> ctypes.CDLL:
     lib_path = _library_path(name)
     if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        _compile([_nvcc(), *NVCC_FLAGS], [str(CSRC / f"{name}.cu")], lib_path,
+                 f"nvcc for {name}.cu")
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _INT
     return lib
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`, with argtypes set."""
+    return _once(("cuda", name), lambda: _load_kernel_library(name))
+
+
+def _host_cpu() -> bytes:
+    """This host's CPU model and flags: what `-march=native` builds for."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return platform.processor().encode()
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags", "Features"))]
+    return "\n".join(sorted(set(keep))).encode()
+
+
+def native_library_path(name: str, libs: Sequence[str]) -> Path:
+    """Where `native/<name>.cpp` built for this host with `libs` goes."""
+    h = hashlib.sha256()
+    h.update((NATIVE_SRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join([*GXX_FLAGS, *libs]).encode())
+    h.update(_host_cpu())
+    return NATIVE_BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _load_native(name: str, libs: Sequence[str], bind) -> Optional[ctypes.CDLL]:
+    src = NATIVE_SRC / f"{name}.cpp"
+    gxx = shutil.which("g++")
+    if not src.exists() or gxx is None:
+        return None
+    lib_path = native_library_path(name, libs)
+    if not lib_path.exists():
+        try:
+            _compile([gxx, *GXX_FLAGS], [str(src), *libs], lib_path, f"g++ for {name}.cpp")
+        except RuntimeError:
+            return None  # a library it links (libjpeg, libav) is missing here
+    try:
+        lib = ctypes.CDLL(str(lib_path))
+    except OSError:
+        return None  # the shared libraries it links are not installed here
+    bind(lib)
+    return lib
+
+
+def load_native(name: str, libs: Sequence[str], bind) -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load the host library `native/<name>.cpp`,
+    linked with `libs`, and call bind(lib) once to set its argtypes; None
+    when g++ or a linked library is missing (the caller then takes the cv2
+    or numpy path, as the JAX package does)."""
+    return _once(("native", name), lambda: _load_native(name, tuple(libs), bind))
 
 
 def build_all() -> float:
@@ -163,9 +247,13 @@ def check_operand(what: str, t: torch.Tensor, dtype: torch.dtype, like=None) -> 
 
 def launch(name: str, entry: str, device: torch.device, *args) -> None:
     """Call C launcher `entry` of `csrc/<name>.cu` with `args` and the
-    current stream of `device`; raise if it returns a nonzero cudaError_t."""
+    current stream of `device`; raise if it returns a nonzero cudaError_t.
+    While a profiler runs, its trace shows the call as a range named
+    `entry`."""
     lib = load_library(name)
-    with torch.cuda.device(device):
+    traced = (torch.profiler.record_function(entry) if torch.autograd._profiler_enabled()
+              else contextlib.nullcontext())
+    with traced, torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, entry)(*args, stream)
     if rc != 0:

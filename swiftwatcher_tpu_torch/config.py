@@ -6,9 +6,9 @@ thing to both packages (tests/test_torch_host.py holds them equal).  Every
 constant the reference hardcodes is a named field; the reference call site
 of each default is cited inline (paths in the original swiftwatcher).
 
-Fields that select a stage the port has not ported yet keep their place and
-default; the comment names the ROADMAP.md item, and `run_video` or the CLI
-raises where such a setting would change the result.
+Fields of a stage the port does not have (the wire codec, which the port
+does not port) keep their place and default and have no effect; the
+comment says so.
 """
 
 from __future__ import annotations
@@ -153,11 +153,13 @@ class PipelineConfig:
     # window that would need more iterations is under-converged), so 0
     # keeps the reference's dynamic stopping (image_filtering.py:256-301).
     rpca_fixed_iters: int = 0
-    # Native libjpeg decode of HDF5 frames: not ported (ROADMAP.md section 1
-    # item 3, readers); the port reads .npy clips and containers through cv2.
+    # Opt-in native libjpeg decode of HDF5 sources straight to gray crops
+    # (io/native.py:decode_window_gray), where the frame pump is built and
+    # the frames are JPEG.
     native_decode: bool = False
-    # Native libav gray-crop decode of containers: not ported (ROADMAP.md
-    # section 1 item 3, readers); no effect in the port.
+    # Decode containers straight to gray crops on the av and parallel
+    # backends (VideoFileSource.enable_gray_crop_stream), where libav is
+    # built and its probes pass on the file.
     av_gray_decode: bool = True
     # ----- wire transport ----------------------------------------------------
     # The JAX package's host->device wire codec.  The port uploads raw u8
@@ -180,11 +182,10 @@ class PipelineConfig:
     track_stacked_ops: bool = False
 
     # ----- extensions beyond the reference ----------------------------------
-    # Opt-in electronic image stabilisation: align each window's frames to
-    # the window's temporal mean by an integer-shift SAD search over
-    # +-stabilize_max_shift pixels before RPCA.  0 (default) keeps exact
-    # reference parity.  Not ported (ROADMAP.md section 1 item 5): the port
-    # raises on a value above 0.
+    # Opt-in electronic image stabilisation (ops/stabilize.py): align each
+    # frame to the gray crop of the ROI mask's frame by an integer-shift SAD
+    # search over +-stabilize_max_shift pixels before RPCA.  0 (default)
+    # keeps exact reference parity.
     stabilize_max_shift: int = 0
 
 

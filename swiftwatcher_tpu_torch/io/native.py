@@ -1,0 +1,192 @@
+"""ctypes bindings of the native frame pump (native/framepump.cpp).
+
+The port's copy of swiftwatcher_tpu/io/native.py without the wire codec's
+encoders.  The library is built by g++ at first use into build/native/
+(swiftwatcher_tpu_torch/build.py:load_native) and links libjpeg.  Every
+entry point is gated by `is_available()`: without g++ or libjpeg the
+callers take the cv2 or numpy paths, which give the same bytes.
+
+  * gray_crop_batch / gray_crop_frames: BGR -> the shift-15 grayscale crop,
+    bit-equal to ops/color.py:bgr_to_gray_host, off the GIL;
+  * decode_jpeg_bgr and decode_window_gray: libjpeg decode (of HDF5
+    frames), the latter straight to gray crops;
+  * AVIReader: MJPG-in-AVI through the first-party container parser.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .. import build
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_INT = ctypes.c_int
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.swt_gray_crop_batch.argtypes = [_U8P, _INT, _INT, _INT, _INT, _INT, _INT, _INT,
+                                        _U8P, _INT]
+    lib.swt_gray_crop_batch.restype = None
+    lib.swt_decode_jpeg_bgr.argtypes = [_U8P, ctypes.c_size_t, _U8P, _INT, _INT,
+                                        ctypes.POINTER(_INT), ctypes.POINTER(_INT)]
+    lib.swt_decode_jpeg_bgr.restype = _INT
+    lib.swt_decode_window_gray.argtypes = [_U8P, ctypes.POINTER(ctypes.c_int64), _INT,
+                                           _INT, _INT, _INT, _INT, _INT, _INT, _U8P, _U8P,
+                                           _INT]
+    lib.swt_decode_window_gray.restype = _INT
+    lib.swt_avi_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(_INT),
+                                 ctypes.POINTER(ctypes.c_double), ctypes.POINTER(_INT),
+                                 ctypes.POINTER(_INT)]
+    lib.swt_avi_open.restype = ctypes.c_void_p
+    lib.swt_avi_read_bgr.argtypes = [ctypes.c_void_p, _U8P, _INT, _INT,
+                                     ctypes.POINTER(_INT), ctypes.POINTER(_INT)]
+    lib.swt_avi_read_bgr.restype = _INT
+    lib.swt_avi_close.argtypes = [ctypes.c_void_p]
+    lib.swt_avi_close.restype = None
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    return build.load_native("framepump", ("-ljpeg", "-lpthread"), _bind)
+
+
+def is_available() -> bool:
+    return _load() is not None
+
+
+def _u8ptr(a: np.ndarray):
+    return a.ctypes.data_as(_U8P)
+
+
+def _out(shape, out: Optional[np.ndarray]) -> np.ndarray:
+    """`out` checked against `shape` (a writable contiguous u8 array), or
+    a new array."""
+    if out is None:
+        return np.empty(shape, np.uint8)
+    if out.shape != tuple(shape) or out.dtype != np.uint8 or not out.flags.c_contiguous \
+            or not out.flags.writeable:
+        raise ValueError(f"out: want a writable contiguous uint8 array of shape {tuple(shape)}")
+    return out
+
+
+def gray_crop_batch(frames: np.ndarray, crop_region, n_threads: int = 4,
+                    out: Optional[np.ndarray] = None) -> np.ndarray:
+    """(N, H, W, 3) uint8 BGR -> (N, y2-y1, x2-x1) uint8 grayscale crops,
+    bit-equal to cv2.cvtColor + slicing.  The crop must lie inside the
+    frame.  `out`, when given, receives the crops (a pinned buffer's view)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native frame pump is not available (g++ or libjpeg missing)")
+    frames = np.ascontiguousarray(frames, np.uint8)
+    n, H, W, _ = frames.shape
+    (x1, y1), (x2, y2) = crop_region
+    if not (0 <= y1 < y2 <= H and 0 <= x1 < x2 <= W):
+        raise ValueError(f"crop {crop_region} outside a {H} x {W} frame")
+    out = _out((n, y2 - y1, x2 - x1), out)
+    lib.swt_gray_crop_batch(_u8ptr(frames), n, H, W, y1, y2, x1, x2, _u8ptr(out), n_threads)
+    return out
+
+
+def gray_crop_frames(frames: Sequence[np.ndarray], crop_region, out: np.ndarray) -> np.ndarray:
+    """gray_crop_batch over a list of (H, W, 3) frames, each cropped where
+    it lies (no stacked copy of the BGR crops), into `out`."""
+    for t, f in enumerate(frames):
+        gray_crop_batch(f[None], crop_region, n_threads=1, out=out[t : t + 1])
+    return out
+
+
+def decode_jpeg_bgr(data: bytes, max_h: int = 4320, max_w: int = 7680) -> Optional[np.ndarray]:
+    """JPEG bytes -> (H, W, 3) uint8 BGR, or None on a decode failure."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native frame pump is not available (g++ or libjpeg missing)")
+    buf = np.frombuffer(data, np.uint8)
+    # scanlines land at the decoded width's stride: a flat buffer, reshaped
+    # by the decoded (h, w)
+    out = np.empty(max_h * max_w * 3, np.uint8)
+    h, w = _INT(0), _INT(0)
+    rc = lib.swt_decode_jpeg_bgr(_u8ptr(buf), buf.size, _u8ptr(out), max_h, max_w,
+                                 ctypes.byref(h), ctypes.byref(w))
+    if rc != 0:
+        return None
+    return out[: h.value * w.value * 3].reshape(h.value, w.value, 3).copy()
+
+
+def decode_window_gray(encoded_frames, H: int, W: int, crop_region, n_threads: int = 4,
+                       out: Optional[np.ndarray] = None):
+    """A window of JPEG buffers of (H, W) frames, decoded straight to gray
+    crops: ((N, ch, cw) uint8, ok (N,) bool).  A frame that fails to decode
+    is zero and flagged, so the caller can substitute the last good crop
+    (the reference's io_video.py:51-53)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native frame pump is not available (g++ or libjpeg missing)")
+    bufs = np.frombuffer(
+        b"".join(e if isinstance(e, bytes) else bytes(e) for e in encoded_frames), np.uint8)
+    offsets = np.zeros(len(encoded_frames) + 1, np.int64)
+    np.cumsum([len(e) for e in encoded_frames], out=offsets[1:])
+    (x1, y1), (x2, y2) = crop_region
+    out = _out((len(encoded_frames), y2 - y1, x2 - x1), out)
+    ok = np.zeros(len(encoded_frames), np.uint8)
+    lib.swt_decode_window_gray(
+        _u8ptr(bufs), offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        len(encoded_frames), H, W, y1, y2, x1, x2, _u8ptr(out), _u8ptr(ok), n_threads)
+    return out, ok.astype(bool)
+
+
+class AVIReader:
+    """Sequential decoder of MJPEG-in-AVI over the native container parser.
+
+    Open with AVIReader.open(), which returns None for anything that is not
+    an MJPG AVI (or without the library); the caller then takes cv2."""
+
+    def __init__(self, lib, handle, n_frames, fps, width, height):
+        self._lib = lib
+        self._handle = handle
+        self.n_frames = n_frames
+        self.fps = fps
+        self.width = width
+        self.height = height
+        # a read must not run while close() frees the handle (a prefetcher
+        # thread may be reading when the owner closes the source)
+        self._rw_lock = threading.Lock()
+
+    @classmethod
+    def open(cls, path) -> Optional["AVIReader"]:
+        lib = _load()
+        if lib is None:
+            return None
+        n, fps, w, h = _INT(0), ctypes.c_double(0.0), _INT(0), _INT(0)
+        handle = lib.swt_avi_open(str(path).encode(), ctypes.byref(n), ctypes.byref(fps),
+                                  ctypes.byref(w), ctypes.byref(h))
+        if not handle:
+            return None
+        return cls(lib, handle, n.value, fps.value, w.value, h.value)
+
+    def read(self) -> Optional[np.ndarray]:
+        """The next frame as (H, W, 3) uint8 BGR; None on a decode error
+        (the stream advances, as a failed cv2 retrieve does) or at its end."""
+        max_h = self.height or 4320
+        max_w = self.width or 7680
+        out = np.empty(max_h * max_w * 3, np.uint8)
+        h, w = _INT(0), _INT(0)
+        with self._rw_lock:
+            if not self._handle:
+                return None
+            rc = self._lib.swt_avi_read_bgr(self._handle, _u8ptr(out), max_h, max_w,
+                                            ctypes.byref(h), ctypes.byref(w))
+        if rc != 0:
+            return None
+        return out[: h.value * w.value * 3].reshape(h.value, w.value, 3)
+
+    def close(self) -> None:
+        with self._rw_lock:
+            if self._handle:
+                self._lib.swt_avi_close(self._handle)
+                self._handle = None
+
+    def __del__(self):
+        self.close()

@@ -5,6 +5,8 @@ byte-identical frames for the same arguments (same numpy draws in the same
 order): a static sky + chimney scene, swifts diving into the chimney mouth
 (countable events), vanishers that end inside the ROI at a shallow angle
 (rejected events) and crossers that leave the frame (no event).
+write_container puts such frames into a video container, as test input
+for the decode backends.
 """
 
 from __future__ import annotations
@@ -106,3 +108,25 @@ def make_video(
         n_crossing=realized["cross"],
         n_vanishing=realized["vanish"],
     )
+
+
+def write_container(path, frames, fps: float, fourcc: str) -> bool:
+    """Write (H, W, 3) uint8 BGR frames (any iterable; the first sets the
+    size) into a container through cv2.VideoWriter with codec `fourcc`
+    ("MJPG" for an AVI, "mp4v" for an MP4); False where cv2 cannot open
+    that codec."""
+    import cv2
+
+    writer = None
+    try:
+        for f in frames:
+            if writer is None:
+                writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), fps,
+                                         (f.shape[1], f.shape[0]))
+                if not writer.isOpened():
+                    return False
+            writer.write(f)
+    finally:
+        if writer is not None:
+            writer.release()
+    return writer is not None

@@ -14,7 +14,10 @@ Two trackers, as in the JAX package:
     event buffer, the overflow flags and the IALM iteration counts are
     read back.
 Either can checkpoint every `checkpoint_interval_batches` batches and
-resume from its checkpoint (utils/checkpoint.py).
+resume from its checkpoint (utils/checkpoint.py).  `profile_dir` records a
+torch.profiler trace of the run (the host always, the card's kernels on a
+card) and each batch's device time of localisation and of the tracking
+scan.
 
 `segment_filter` (--classify, models/classifier.py) drops the segments a
 classifier rejects before tracking; it needs the full-resolution frames
@@ -35,8 +38,11 @@ the ones it tracks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
+import warnings
 from pathlib import Path
 from typing import Callable, List, Optional
 
@@ -45,11 +51,12 @@ import torch
 
 from ..config import PipelineConfig
 from ..device import pin_numerics
-from ..geometry import crop_region_from_corners, roi_crop_region_from_corners
+from ..geometry import crop_array, crop_region_from_corners, roi_crop_region_from_corners
 from ..io.prefetch import WindowPrefetcher
 from ..io.segments_export import export_frame_segments
 from ..io.source import FrameSource
 from ..models.classifier import upload
+from ..ops.color import bgr_to_gray_host
 from ..ops.roi_mask import generate_roi_mask
 from ..utils import checkpoint
 from ..utils.metrics import RunMetrics
@@ -58,6 +65,40 @@ from .events import ClassifiedEvents, classify_events, labels_dataframe
 from .tracking import Event, SegmentTracker
 from .tracking_device import compact_tables, empty_state, track_window
 from .window import localize_windows_gray
+
+
+# The profiler's session is process-wide: a second one started beside it
+# loses its trace.  The run that holds this lock traces.
+_TRACE_LOCK = threading.Lock()
+
+
+def _start_trace(device: torch.device):
+    """A started torch.profiler session (the host; the card's kernels too on
+    a card), or None, with a warning, while another run of this process
+    traces (run_videos under --profile): that run goes untraced, as the
+    JAX package's does where its start_trace fails."""
+    if not _TRACE_LOCK.acquire(blocking=False):
+        warnings.warn("torch.profiler trace unavailable: another run in this process "
+                      "is tracing", RuntimeWarning)
+        return None
+    try:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+    except BaseException:
+        _TRACE_LOCK.release()
+        raise
+    return profiler
+
+
+def _stop_trace(profiler, profile_dir: Path) -> None:
+    try:
+        profiler.stop()
+        profiler.export_chrome_trace(str(profile_dir / "trace.json"))
+    finally:
+        _TRACE_LOCK.release()
 
 
 @dataclasses.dataclass
@@ -96,10 +137,6 @@ def frame_centroids(table, b: int, t: int):
     sum_x = table.sum_x[b, t].astype(np.float64)
     area = table.area[b, t].astype(np.float64)
     return [(sum_y[k] / area[k], sum_x[k] / area[k]) for k in idx]
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1 item {item})")
 
 
 def _start_readback(t: torch.Tensor):
@@ -155,13 +192,23 @@ def run_video(
     checkpoint_path: when set, the tracker state and the frame cursor are
     written there every checkpoint_interval_batches batches, and a
     checkpoint already there resumes the run (the source must support
-    seeking)."""
+    seeking).
+    profile_dir: when set, a torch.profiler trace of the run is written
+    there as trace.json (Chrome trace format: chrome://tracing or
+    Perfetto), with the host's stages as ranges named as the JAX
+    package's annotations (localize_dispatch, track_dispatch, consume,
+    classify_pack, classify_track_fused, classify) and the kernels' C
+    launchers by their entry names.  Each batch's localisation and
+    tracking scan are also timed on the device and waited for, into the
+    manifest's device_stage_seconds ("localize", "track_scan"); so the
+    stages no longer overlap, and frames/s drop while profiling.  The
+    manifest goes to profile_dir when there is no export_dir.  One run of
+    a process traces at a time: a run that starts while another traces
+    warns and writes no trace.json, but still its device stage times."""
     if tracker_impl not in ("host", "device"):
         raise ValueError(f"tracker_impl must be 'host' or 'device', got {tracker_impl!r}")
     if mesh is not None:
-        _not_ported("mesh", "6, mesh")
-    if profile_dir is not None:
-        _not_ported("profile_dir", "2, profiling")
+        raise NotImplementedError("mesh is not ported yet (ROADMAP.md section 1 item 6, mesh)")
     batchable = segment_filter is not None and hasattr(segment_filter, "batch_call")
     device = torch.device(device)
     if device.type == "cuda":
@@ -173,6 +220,41 @@ def run_video(
     roi_dev = generate_roi_mask(ff, roi_region, crop_region, cfg, device=device)
     tracker = SegmentTracker(roi_dev.cpu().numpy(), cfg)
     metrics = RunMetrics()
+    # stabilisation (opt-in) aligns every window to the pose of the frame
+    # the ROI mask was built from, so the mask and all centroids share it
+    stab_ref = None
+    if cfg.stabilize_max_shift > 0:
+        stab_ref = torch.from_numpy(
+            bgr_to_gray_host(crop_array(np.asarray(ff), crop_region))).to(device)
+    profiling = profile_dir is not None
+    if profiling:
+        profile_dir = Path(profile_dir)
+        profile_dir.mkdir(parents=True, exist_ok=True)
+    # a stage's range in the trace (a no-op while no profiler runs)
+    annotate = torch.profiler.record_function
+
+    @contextlib.contextmanager
+    def device_stage(stage: str):
+        """While profiling, add the stage's device time to the manifest's
+        device_stage_seconds: on a card, the span between CUDA events
+        recorded on the stream around the stage's work, read once the work
+        has finished (so stages do not overlap while profiling); on the
+        CPU, where ops run as they are called, the stage's wall time."""
+        if not profiling:
+            yield
+            return
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record(stream)
+            yield
+            stop.record(stream)
+            stop.synchronize()
+            metrics.device_stage_add(stage, start.elapsed_time(stop) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            yield
+            metrics.device_stage_add(stage, time.perf_counter() - t0)
     ialm_iters: List[int] = []
     frames_processed = 0
     use_device_tracker = tracker_impl == "device"
@@ -233,10 +315,11 @@ def run_video(
             planes = torch.stack((kvalid.to(torch.int32),) + compacted[4])
             return ("frames", cy, cx, kvalid, overflow, fns, active,
                     _start_readback(planes))
-        dev_state, events = track_window(
-            dev_state, roi_dev, cy.reshape(B * T, -1), cx.reshape(B * T, -1),
-            kvalid.reshape(B * T, -1), fns, cfg, active=active,
-        )
+        with annotate("track_dispatch"), device_stage("track_scan"):
+            dev_state, events = track_window(
+                dev_state, roi_dev, cy.reshape(B * T, -1), cx.reshape(B * T, -1),
+                kvalid.reshape(B * T, -1), fns, cfg, active=active,
+            )
         # the state is kept with the batch, so that a checkpoint written when
         # the batch is consumed pairs it with the batch's cursor
         return events, overflow, dev_state, None
@@ -260,26 +343,29 @@ def run_video(
         # never reads back
         if (export_segments_dir is None and cfg.classify_fused and frames_by_bt
                 and getattr(segment_filter, "supports_fused", False)):
-            fused = pack_fused(segment_filter, view, frames_by_bt, crop_region,
-                               timers=metrics.stage_seconds)
+            with annotate("classify_pack"):
+                fused = pack_fused(segment_filter, view, frames_by_bt, crop_region,
+                                   timers=metrics.stage_seconds)
         if fused is not None:
             canv, meta, mx = fused
             coeff = segment_filter._coeff_table(mx)
             t0 = time.perf_counter()
-            dev_state, events, n_kept = classify_track_fused(
-                segment_filter.params, coeff, canv, meta, dev_state, roi_dev,
-                cy, cx, kvalid, fns, active, cfg)
+            with annotate("classify_track_fused"):
+                dev_state, events, n_kept = classify_track_fused(
+                    segment_filter.params, coeff, canv, meta, dev_state, roi_dev,
+                    cy, cx, kvalid, fns, active, cfg)
             metrics.stage_seconds["classify_device"] = (
                 metrics.stage_seconds.get("classify_device", 0.0) + time.perf_counter() - t0)
             return events, overflow, dev_state, n_kept
         keep_masks = {}
         if segment_filter is not None and frames_by_bt:
-            if batchable:
-                keep_masks = segment_filter.batch_call(view, frames_by_bt, crop_region,
-                                                       timers=metrics.stage_seconds)
-            else:
-                keep_masks = {key: segment_filter(view, key, frame, crop_region)
-                              for key, frame in frames_by_bt.items()}
+            with annotate("classify"):
+                if batchable:
+                    keep_masks = segment_filter.batch_call(view, frames_by_bt, crop_region,
+                                                           timers=metrics.stage_seconds)
+                else:
+                    keep_masks = {key: segment_filter(view, key, frame, crop_region)
+                                  for key, frame in frames_by_bt.items()}
             keep = np.ones((B, T, K), bool)
             for (b, t), kl in keep_masks.items():
                 metrics.segments_total += sum(1 for k in kl if k)
@@ -298,9 +384,10 @@ def run_video(
                         frames[t], view, (b, t), numbers[t], crop_region,
                         export_segments_dir, Path(source.filepath).stem, cfg, keep=keep)
         # the unfused path, and a batch without segments, track here
-        dev_state, events = track_window(
-            dev_state, roi_dev, cy.reshape(B * T, K), cx.reshape(B * T, K),
-            kvalid.reshape(B * T, K), fns, cfg, active=active)
+        with annotate("track_dispatch"):
+            dev_state, events = track_window(
+                dev_state, roi_dev, cy.reshape(B * T, K), cx.reshape(B * T, K),
+                kvalid.reshape(B * T, K), fns, cfg, active=active)
         return events, overflow, dev_state, None
 
     def drain_device_events(events, overflow, n_kept=None) -> None:
@@ -352,8 +439,9 @@ def run_video(
                 frames_by_bt = {(b, t): frames[t] for b, (frames, numbers, _) in enumerate(wins)
                                 for t in range(cfg.window_size)
                                 if numbers[t] >= 0 and table.valid[b, t].any()}
-                keep_masks = segment_filter.batch_call(table, frames_by_bt, crop_region,
-                                                       timers=metrics.stage_seconds)
+                with annotate("classify"):
+                    keep_masks = segment_filter.batch_call(table, frames_by_bt, crop_region,
+                                                           timers=metrics.stage_seconds)
             for b, (frames, numbers, stamps) in enumerate(wins):
                 ialm_iters.append(int(iters[b]))
                 for t in range(cfg.window_size):
@@ -400,7 +488,9 @@ def run_video(
             status_cb(frames_processed, source.total_frames)
 
     prefetcher = WindowPrefetcher(source, crop_region, device, cfg,
-                                  initial_planned=frames_processed, keep_frames=needs_frames)
+                                  initial_planned=frames_processed, keep_frames=needs_frames,
+                                  frame_hw=None if ff is None else ff.shape[:2])
+    profiler = _start_trace(device) if profiling else None
     try:
         # dispatch batch k+1 before consuming batch k
         pending = None
@@ -412,7 +502,9 @@ def run_video(
             if batch is not None:
                 gray, wins, cursor = batch
                 metrics.stage_start("localize")
-                table, iters = localize_windows_gray(gray, cfg, with_bbox=needs_frames)
+                with annotate("localize_dispatch"), device_stage("localize"):
+                    table, iters = localize_windows_gray(gray, cfg, with_bbox=needs_frames,
+                                                         stab_ref=stab_ref)
                 metrics.stage_stop("localize")
                 on_device = None
                 if use_device_tracker:
@@ -421,12 +513,15 @@ def run_video(
                     metrics.stage_stop("track_dispatch")
                 nxt = (table, iters, wins, cursor, on_device)
             if pending is not None:
-                consume(pending)
+                with annotate("consume"):
+                    consume(pending)
             pending = nxt
             if nxt is None:
                 break
     finally:
         prefetcher.close()
+        if profiler is not None:
+            _stop_trace(profiler, profile_dir)
     if deferred[0] is not None:
         drain_device_events(*deferred[0])
 
@@ -447,6 +542,8 @@ def run_video(
             source.start_frame, source.end_frame,
         )
         metrics.write_manifest(out_dir / "run_manifest.json")
+    elif profiling:
+        metrics.write_manifest(profile_dir / "run_manifest.json")
     return VideoResult(
         events=events,
         classified=classified,

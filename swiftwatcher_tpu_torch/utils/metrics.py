@@ -30,8 +30,8 @@ class RunMetrics:
                               # (device tracker only; the host tracker has
                               # no capacity)
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
-    # DEVICE time per stage, filled only by a profiled run (not ported yet:
-    # ROADMAP.md section 1 item 2)
+    # DEVICE time per stage, filled only by a profiled run (run_video's
+    # profile_dir: forced-completion waits of "localize" and "track_scan")
     device_stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     _stage_t0: Dict[str, float] = dataclasses.field(default_factory=dict, repr=False)
 

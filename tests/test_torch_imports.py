@@ -1,7 +1,9 @@
 """The port and chip_smoke.py import nothing of the JAX package (not even
 a module of it without JAX) and none of JAX, pandas, cv2, PIL, h5py or
-chex; the scripts that drive the port on the card import the port alone;
-and the port's synthetic video is the JAX package's, byte for byte."""
+chex; no port module opens a file under swiftwatcher_tpu/ (the native
+decoders build from the repo's native/*.cpp); the scripts that drive the
+port on the card import the port alone; and the port's synthetic video is
+the JAX package's, byte for byte."""
 
 import ast
 import subprocess
@@ -24,8 +26,18 @@ PORT_MODULES = [
 ]
 
 _PROBE = """
-import importlib, importlib.abc, sys
+import importlib, importlib.abc, os, sys
 BLOCKED = set({blocked!r})
+JAX_DIR = os.path.realpath({jax_dir!r}) + os.sep
+opened = []
+
+def audit(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        path = os.path.realpath(os.fsdecode(args[0]))
+        if path.startswith(JAX_DIR):
+            opened.append(path)
+
+sys.addaudithook(audit)
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -38,21 +50,32 @@ for m in {modules!r}:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+# the host decoders build (or load) from native/*.cpp
+from swiftwatcher_tpu_torch.io import native, native_av
+native.is_available(), native_av.is_available()
+assert not opened, opened
 print("ok", len({modules!r}))
 """
 
 
-def test_classify_and_export_modules_are_checked():
-    """The --classify and --export modules are among those the probe below
-    imports with PIL and cv2 blocked: both are imported inside functions."""
-    for m in ("models.squeezenet", "models.preprocess", "models.classifier",
-              "pipeline.classify_fused", "io.segments_export"):
+@pytest.mark.parametrize("modules", [
+    ("models.squeezenet", "models.preprocess", "models.classifier",
+     "pipeline.classify_fused", "io.segments_export"),
+    ("io.native", "io.native_av", "io.parallel_decode", "io.source", "io.prefetch",
+     "ops.stabilize", "pipeline.multi", "ui"),
+], ids=["classify-export", "readers-flags"])
+def test_new_modules_are_checked(modules):
+    """The --classify/--export modules and the readers, stabilisation,
+    multi-video and picker modules are among those the probe below imports
+    with PIL, cv2 and h5py blocked: each imports those inside functions."""
+    for m in modules:
         assert f"swiftwatcher_tpu_torch.{m}" in PORT_MODULES
 
 
 def test_port_and_chip_smoke_import_without_blocked_packages():
     modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ["chip_smoke"]
-    code = _PROBE.format(blocked=BLOCKED, modules=modules)
+    code = _PROBE.format(blocked=BLOCKED, modules=modules,
+                         jax_dir=str(ROOT / "swiftwatcher_tpu"))
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
     )
@@ -88,6 +111,13 @@ def test_no_jax_in_port_sources():
         assert "import jax" not in text and "from jax" not in text, p
         assert "swiftwatcher_tpu." not in text.replace("swiftwatcher_tpu_torch.", ""), p
         assert "swiftwatcher_tpu" not in _imported_tops(p), p
+        # no path into the JAX package's directory, as a string or a path
+        # part (prose, with spaces, may name its files)
+        strings = [n.value for n in ast.walk(ast.parse(text))
+                   if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                   and not any(c.isspace() for c in n.value)]
+        assert not [v for v in strings if v == "swiftwatcher_tpu"
+                    or "swiftwatcher_tpu/" in v or "swiftwatcher_tpu\\" in v], p
 
 
 @pytest.mark.parametrize("kw", [

@@ -95,12 +95,57 @@ def test_exported_csvs_byte_equal(tmp_path):
     assert (ours.export_dir / "run_manifest.json").is_file()
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"profile_dir": "prof"}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_unported_options_raise(kw):
     video = make_video(seed=0, n_frames=21, n_entering=0, n_crossing=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_video(ArraySource(video.frames, fps=video.fps), video.corners,
                   DEFAULT_CONFIG, CPU, **kw)
+
+
+@pytest.mark.parametrize("impl", ["host", "device"])
+def test_profile_dir_writes_a_trace_and_device_times(tmp_path, impl):
+    """profile_dir: the trace names the JAX package's stage annotations, the
+    manifest (no export dir: into profile_dir) carries the device times,
+    and the events are the unprofiled run's."""
+    import json
+
+    video = make_video(**SCENES["seed0"])
+    plain = _run(video, impl)
+    prof = _run(video, impl, profile_dir=tmp_path / "prof")
+    assert _events(prof) == _events(plain)
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    want = {"localize_dispatch", "consume"} | ({"track_dispatch"} if impl == "device" else set())
+    assert want <= names
+    manifest = json.loads((tmp_path / "prof" / "run_manifest.json").read_text())
+    stages = {"localize"} | ({"track_scan"} if impl == "device" else set())
+    assert set(manifest["device_stage_seconds"]) == stages
+    assert set(prof.metrics.device_stage_seconds) == stages
+    assert not plain.metrics.device_stage_seconds
+
+
+@pytest.mark.parametrize("impl", ["host", "device"])
+def test_stabilised_run_vs_jax(impl):
+    """stabilize_max_shift=3 (the --accuracy-pack shift) on a jittered
+    scene: the JAX package's events and counts, on either tracker."""
+    from swiftwatcher_tpu.io.synthetic import make_hard_video
+
+    video = make_hard_video(seed=49, n_entering=3, jitter=2, n_frames=63)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, stabilize_max_shift=3)
+    ours = run_video(ArraySource(video.frames, fps=video.fps), video.corners, cfg, CPU,
+                     tracker_impl=impl)
+    theirs = jax_run_video(JaxArraySource(video.frames, fps=video.fps), video.corners,
+                           dataclasses.replace(JAX_CONFIG, stabilize_max_shift=3),
+                           tracker_impl="host")
+    assert [e.frame_number for e in ours.events] == [e.frame_number for e in theirs.events]
+    # the device tracker keeps f32 centroids, the host tracker f64
+    np.testing.assert_allclose([e.first_centroid + e.last_centroid for e in ours.events],
+                               [e.first_centroid + e.last_centroid for e in theirs.events],
+                               rtol=0, atol=1e-3 if impl == "device" else 0)
+    assert (ours.total_predicted, ours.total_rejected) == (
+        theirs.total_predicted, theirs.total_rejected)
+    assert ours.events
 
 
 def _run(video, impl, cfg=DEFAULT_CONFIG, **kw):
