@@ -98,7 +98,19 @@ path (`run_video`) end to end:
      byte-equal to two sequential runs; stabilize_window (J = 3) on one bench batch shaken by
      planted integer shifts, card == CPU bit for bit; --accuracy-pack on a
      jittered small scene, card == CPU; opening an .h5 without h5py raises
-     an ImportError that names h5py and the alternatives.
+     an ImportError that names h5py and the alternatives;
+ 15. --mesh (parallel/mesh.py): a (1, 1) mesh on NCCL, and (1, 2) and (2, 1)
+     meshes on gloo with both ranks on the one card: the first batch's
+     sharded tables equal the unsharded localize_windows_gray's (IALM
+     iterations within 1); run_video over the 1008 frames on each, warm,
+     and cold on (1, 2), with the device tracker: events equal phase 11's
+     (phase 9's cold), every rank launched K1 and K2 (and K6 cold), with
+     frames/s, the backend and each rank's seconds in collectives per
+     batch; sharded_train_step on (1, 2) against one process's step on the
+     card (losses within 1e-5, head within 1e-6); the CLI with --mesh 1x1
+     gives the CSVs of the CLI without it, and --mesh 2x1 on one card is
+     refused with the JAX CLI's message; finetune on the card against the
+     CPU (head within 1e-6).
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -130,6 +142,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1022,7 +1035,9 @@ def run() -> None:
             (13, phase13, (np, torch, dev, cfg, card, bench, n_frames // 2, wrappers, r11,
                            secs11)),
             (14, phase14, (np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11,
-                           secs11))):
+                           secs11)),
+            (15, phase15, (np, torch, dev, cfg, card, bench, small, gray_dev, n_frames, r9,
+                           r11))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"phase {n} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1117,8 +1132,6 @@ class RssPeak:
     from /proc every 20 ms, in MiB."""
 
     def __enter__(self):
-        import threading
-
         self.peak = 0.0
         self._stop = threading.Event()
 
@@ -1747,6 +1760,163 @@ def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, se
             check("h5py" in str(e) and ".npy" in str(e), f"the .h5 error does not say why: {e}")
             print(f"phase 14 .h5 without h5py: ImportError: {e}", flush=True)
 
+
+
+def phase15(np, torch, dev, cfg, card, bench, small, gray_dev, n_frames, r9, r11) -> None:
+    """--mesh on the one-card machine: a (1, 1) mesh on NCCL, (1, 2) and
+    (2, 1) on gloo with the ranks sharing the card; the dp x tp train step
+    and the fine-tune."""
+    from swiftwatcher_tpu_torch import ui
+    from swiftwatcher_tpu_torch.__main__ import main as cli_main
+    from swiftwatcher_tpu_torch.io.source import LoopingArraySource
+    from swiftwatcher_tpu_torch.models import train
+    from swiftwatcher_tpu_torch.models.squeezenet import random_params
+    from swiftwatcher_tpu_torch.parallel.mesh import (
+        gather_head,
+        init_sharded_training,
+        make_mesh,
+        ping,
+        rank_counters,
+        sharded_localize_windows_gray,
+    )
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+    from swiftwatcher_tpu_torch.pipeline.window import localize_windows_gray
+
+    cold = dataclasses.replace(cfg, rpca_warm_basis=False)
+    table_1, iters_1 = localize_windows_gray(gray_dev, cfg)
+
+    def key(e):
+        return (e.frame_number, *e.first_centroid, *e.last_centroid)
+
+    def same_events(r, want):
+        a, b = sorted(map(key, r.events)), sorted(map(key, want.events))
+        return ((r.total_predicted, r.total_rejected) == (want.total_predicted,
+                                                           want.total_rejected)
+                and len(a) == len(b) and all(x[0] == y[0] and np.allclose(x[1:], y[1:], atol=1e-3)
+                                             for x, y in zip(a, b)))
+
+    def first_batch(mesh):
+        t0 = time.perf_counter()
+        table, iters = sharded_localize_windows_gray(gray_dev, mesh, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for f in ("valid", "area", "sum_y", "sum_x"):
+            check(torch.equal(getattr(table, f), getattr(table_1, f)),
+                  f"mesh {mesh}: first-batch table field {f} differs from the unsharded one")
+        it = int((iters - iters_1).abs().max())
+        check(it <= 1, f"mesh {mesh}: IALM iterations differ by {it}")
+        return f"first-batch tables equal the unsharded ones (iters max |diff| {it}, {ms:.1f} ms)"
+
+    def mesh_run(mesh, run_cfg, want, label):
+        mesh.run(rank_counters, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_video(LoopingArraySource(bench.frames, total=n_frames, fps=bench.fps),
+                      bench.corners, run_cfg, dev, tracker_impl="device", mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counters = mesh.run(rank_counters)
+        check(r.frames_processed == n_frames, f"mesh {label}: wrong frame count")
+        check(same_events(r, want), f"mesh {label}: events differ from the unsharded run's")
+        need = ("fused_motion_filter", "label_rank_fused") + (
+            ("ialm_front",) if not run_cfg.rpca_warm_basis else ())
+        for rank, launches in enumerate(counters["launches"]):
+            check(all(launches[k] > 0 for k in need),
+                  f"mesh {label}: rank {rank} did not launch each of {need}: {launches}")
+        per_batch = [s / r.metrics.batches for s in counters["collective_seconds"]]
+        print(f"phase 15 run_video 1080p on the {label} mesh ({mesh.backend}): "
+              f"{r.frames_processed} frames in {secs:.2f} s = {r.frames_processed / secs:.1f} "
+              f"frames/s, collectives {', '.join(f'{s:.4f}' for s in per_batch)} s a batch "
+              f"by rank [{card}]; {len(r.events)} events equal the unsharded run's; launches "
+              f"by rank {counters['launches']}", flush=True)
+
+    # 15.1 one rank on NCCL: the sharded program with no collective
+    with make_mesh((1, 1), device=dev, timeout=600) as mesh:
+        check(mesh.backend == "nccl", f"(1, 1) mesh on {mesh.backend}, want nccl")
+        print(f"phase 15 (1, 1) mesh on {mesh.backend}: {first_batch(mesh)}", flush=True)
+        mesh_run(mesh, cfg, r11, "1x1")
+
+    # 15.2 two ranks sharing the card on gloo: pixels split over 'model',
+    # warm and cold; then the dp x tp train step against one process's
+    with make_mesh((1, 2), device=dev, timeout=600) as mesh:
+        check(mesh.backend == "gloo", f"(1, 2) mesh on {mesh.backend}, want gloo")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            mesh.run(ping)
+        trip = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"phase 15 (1, 2) mesh on {mesh.backend}: a run's round trip {trip:.2f} ms "
+              f"(load average {os.getloadavg()[0]:.2f}, {threading.active_count()} threads "
+              f"here); {first_batch(mesh)}", flush=True)
+        mesh_run(mesh, cfg, r11, "1x2 warm")
+        mesh_run(mesh, cold, r9, "1x2 cold")
+
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        params = random_params(rng, device=dev)
+        feats = torch.from_numpy(rng.standard_normal((8, 512, 3, 3)).astype(np.float32)).to(dev)
+        labels = np.arange(8) % 2
+        feats[labels == 1, :64] += 3.0
+        _, head = train.split_params(params)
+        opt = train.make_optimizer(head, 1e-3)
+        _, _, _, step, place = init_sharded_training(mesh, params, lr=1e-3)
+        placed = place(head, opt, feats, labels)
+        lab = torch.from_numpy(labels).to(dev)
+        unsharded = train.make_train_step()
+        want = [float(unsharded(head, opt, feats, lab)[2]) for _ in range(5)]
+        got = [step(*placed)[2] for _ in range(5)]
+        whole = gather_head(placed[0])
+        head_err = max(float((whole[k] - head[k].detach().cpu()).abs().max())
+                       for k in train.HEAD_KEYS)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"phase 15 sharded_train_step on (1, 2) vs one process on the card, 5 steps: "
+              f"losses {['%.6f' % v for v in got]}, rel |diff| {loss_err:.3g}, head max |diff| "
+              f"{head_err:.3g}, {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        check(loss_err <= 1e-5 and head_err <= 1e-6,
+              "sharded train step differs from the unsharded one")
+
+    # 15.3 two ranks on gloo, windows split over 'data'
+    with make_mesh((2, 1), device=dev, timeout=600) as mesh:
+        print(f"phase 15 (2, 1) mesh on {mesh.backend}: {first_batch(mesh)}", flush=True)
+        mesh_run(mesh, cfg, r11, "2x1")
+
+    # 15.4 the CLI: --mesh 1x1 gives the CSVs of the run without it; --mesh
+    # 2x1 asks for more cards than there are
+    with tempfile.TemporaryDirectory() as tmp:
+        csvs = {}
+        for name, flags in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+            clip = Path(tmp) / name / "clip.npy"
+            clip.parent.mkdir()
+            np.save(clip, small.frames)
+            ui.save_corners_to_file(clip, small.corners)
+            with contextlib.redirect_stdout(io.StringIO()):
+                check(cli_main(["--filepaths", str(clip), *flags]) == 0, f"CLI {flags} failed")
+            csvs[name] = {p.name: p.read_bytes() for p in sorted((clip.parent / "clip").glob("*.csv"))}
+        check(len(csvs["plain"]) == 6 and csvs["mesh"] == csvs["plain"],
+              "CLI --mesh 1x1: CSVs differ from the CLI without it")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["--filepaths", str(clip), "--mesh", "2x1"])
+        have = torch.cuda.device_count()
+        if have < 2:
+            check(rc == 2 and f"needs 2 devices; only {have} available" in err.getvalue(),
+                  f"CLI --mesh 2x1 on {have} card(s): rc {rc}, {err.getvalue()!r}")
+        print(f"phase 15 CLI --mesh 1x1: six CSVs byte-equal to the CLI without it; --mesh 2x1 "
+              f"on {have} card(s): exit {rc}, {err.getvalue().strip()!r}", flush=True)
+
+    # 15.5 the fine-tune on the card against the CPU
+    rng = np.random.default_rng(4)
+    images = rng.standard_normal((6, 224, 224, 3)).astype(np.float32)
+    labels = np.array([0, 1, 1, 0, 1, 0])
+    params = {k: v.cpu() for k, v in random_params(np.random.default_rng(5)).items()}
+    t0 = time.perf_counter()
+    on_card = train.finetune(params, images, labels, steps=3, batch_size=4, seed=7, device=dev)
+    secs = time.perf_counter() - t0
+    on_cpu = train.finetune(params, images, labels, steps=3, batch_size=4, seed=7,
+                            device=torch.device("cpu"))
+    errs = {k: float(np.abs(on_card[k] - on_cpu[k]).max()) for k in train.HEAD_KEYS}
+    print(f"phase 15 finetune (3 steps of 4 images at 224 x 224) card vs CPU: head max |diff| "
+          f"{errs} (tolerance 1e-6), {secs:.2f} s on the card [{card}]", flush=True)
+    check(max(errs.values()) <= 1e-6, "finetune on the card differs from the CPU")
 
 
 def main() -> int:

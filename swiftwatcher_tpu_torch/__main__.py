@@ -2,7 +2,8 @@
 
     python -m swiftwatcher_tpu_torch --filepaths night.mp4 [clip.npy cache.h5 ...]
         [--classify] [--export] [--profile] [--parallel-videos N]
-        [--accuracy-pack] [--set field=value ...] [--device cpu]
+        [--accuracy-pack] [--mesh DATAxMODEL] [--set field=value ...]
+        [--device cpu]
 
 Counterpart of swiftwatcher_tpu/__main__.py (reference __main__.py:13-53):
 per video, open a frame source by suffix (io/source.py: a container
@@ -15,12 +16,15 @@ shipped SqueezeNet weights (models/segment_classifier.npz); --export
 writes each segment's PNGs under <video dir>/<stem>/segments; --profile
 writes a profiler trace and the run manifest under <video dir>/<stem>/
 profile; --parallel-videos N counts up to N videos at once (without the
-progress line).  With no --filepaths a file dialog asks for them.  Runs on
-the card unless --device says otherwise.
+progress line); --mesh DATAxMODEL shards each batch's localisation over
+that many ranks (parallel/mesh.py: one card each on NCCL, or processes
+sharing the card or the CPU on gloo).  With no --filepaths a file dialog
+asks for them.  Runs on the card unless --device says otherwise.
 """
 
 from __future__ import annotations
 
+import re
 import sys
 
 import torch
@@ -29,6 +33,7 @@ from . import ui
 from .config import ACCURACY_PACK_OVERRIDES, config_with_overrides
 from .device import require_cuda
 from .io.source import open_source
+from .parallel.mesh import make_mesh
 from .pipeline.multi import run_videos
 from .pipeline.runner import run_video
 
@@ -43,6 +48,24 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     if device.type == "cuda":
         require_cuda()
+    mesh_shape = None
+    if args.mesh:
+        m = re.fullmatch(r"(\d+)(?:x(\d+))?", args.mesh)
+        if not m:
+            print(
+                f"[!] --mesh must look like DATAxMODEL (e.g. 4x2), "
+                f"got {args.mesh!r}.", file=sys.stderr,
+            )
+            return 2
+        mesh_shape = (int(m.group(1)), int(m.group(2) or 1))
+        if device.type == "cuda":
+            have = torch.cuda.device_count()
+            if mesh_shape[0] * mesh_shape[1] > have:
+                print(
+                    f"[!] --mesh {args.mesh} needs {mesh_shape[0] * mesh_shape[1]} "
+                    f"devices; only {have} available.", file=sys.stderr,
+                )
+                return 2
     filepaths = args.filepaths if args.filepaths else ui.select_filepaths()
     segment_filter = None
     if args.classify:
@@ -62,6 +85,8 @@ def main(argv=None) -> int:
         jobs.append((source, corners))
         out_dirs.append(output_dir)
 
+    mesh = None
+
     def kwargs_for(i):
         return dict(
             export_dir=out_dirs[i],
@@ -72,10 +97,14 @@ def main(argv=None) -> int:
             export_segments_dir=(out_dirs[i] / "segments") if args.export else None,
             tracker_impl=args.tracker,
             profile_dir=(out_dirs[i] / "profile") if args.profile else None,
-            mesh=args.mesh,
+            mesh=mesh,
         )
 
     try:
+        if mesh_shape is not None:
+            mesh = make_mesh(mesh_shape, device=device)
+            print(f"[-] mesh {mesh_shape[0]}x{mesh_shape[1]} on {mesh.backend}, rank 0 on "
+                  f"{mesh.device}")
         if args.parallel_videos > 1:
             results = run_videos(jobs, cfg, device, max_concurrent=args.parallel_videos,
                                  per_video_kwargs=kwargs_for)
@@ -85,6 +114,8 @@ def main(argv=None) -> int:
                 ui.start_status(filepaths[i].name)
                 results.append(run_video(source, corners, cfg, device, **kwargs_for(i)))
     finally:
+        if mesh is not None:
+            mesh.close()
         for source, _ in jobs:
             source.close()
 

@@ -48,8 +48,8 @@ def _conv(x, params, key, stride=1, padding=0):
                     stride=stride, padding=padding)
 
 
-def forward(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """(N, 3, 224, 224) float32 normalized input -> (N, num_classes) logits."""
+def features(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The feature trunk: (N, 3, 224, 224) float32 input -> (N, 512, 13, 13)."""
     x = F.relu(_conv(x, params, "features.0", stride=2))
     fire_at = {idx: cfg for idx, *cfg in FIRE_LAYOUT}
     for idx in range(1, 13):
@@ -60,7 +60,12 @@ def forward(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor
             e1 = F.relu(_conv(s, params, f"features.{idx}.expand1x1"))
             e3 = F.relu(_conv(s, params, f"features.{idx}.expand3x3", padding=1))
             x = torch.cat([e1, e3], dim=1)
-    x = F.relu(_conv(x, params, "classifier.1"))
+    return x
+
+
+def forward(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 224, 224) float32 normalized input -> (N, num_classes) logits."""
+    x = F.relu(_conv(features(params, x), params, "classifier.1"))
     return x.mean(dim=(2, 3))  # AdaptiveAvgPool2d((1, 1)) + flatten
 
 

@@ -21,6 +21,11 @@ Quirks of the reference kept on purpose:
     uint8 cast.
 
 The dynamic loop reads `any(active)` back to the host once per iteration.
+
+Sequence parallelism (parallel/mesh.py): with a `group`, X is one block of
+the pixel axis and the solve runs on every rank of the group together; the
+T x T Grams and the norms are its only cross-rank quantities, summed (and
+for norm_inf maxed) over the group at the JAX package's psum/pmax sites.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ def ialm_rpca_batched(
     store_y_dtype: Optional[str] = None,
     store_ae_dtype: Optional[str] = None,
     fixed_iters: int = 0,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched IALM over row-convention X (B, T, P).
 
@@ -94,7 +100,12 @@ def ialm_rpca_batched(
     windows); store_y_dtype / store_ae_dtype round the loop-carried Y and
     (A, E) to that dtype between iterations (lossy, PARITY deviation 8).
     fixed_iters > 0 runs exactly that many iterations with no stopping test
-    and no freeze masks."""
+    and no freeze masks.
+
+    group: the counterpart of the JAX package's axis_name, an object with
+    sum(t) and max(t) over the ranks that hold the other pixel blocks of X
+    (parallel.mesh.AxisGroup); None solves X alone.  Every rank of the
+    group sees the same reduced norms, so all take the same iterations."""
     dtype = X.dtype
     sd_x = _DTYPES[x_store_dtype] if x_store_dtype else None
     sd_y = _DTYPES[store_y_dtype] if store_y_dtype else None
@@ -102,8 +113,14 @@ def ialm_rpca_batched(
     eps = torch.finfo(dtype).eps
     tiny = torch.finfo(dtype).tiny
 
-    frob = torch.sqrt((X * X).sum(dim=(-2, -1))).clamp(min=1e-12)   # (B,)
-    norm_inf = X.abs().amax(dim=(-2, -1)) / lmbda
+    def allsum(v):
+        return group.sum(v) if group is not None else v
+
+    def allmax(v):
+        return group.max(v) if group is not None else v
+
+    frob = torch.sqrt(allsum((X * X).sum(dim=(-2, -1)))).clamp(min=1e-12)   # (B,)
+    norm_inf = allmax(X.abs().amax(dim=(-2, -1))) / lmbda
     dual = torch.maximum(frob, norm_inf)
     Y0 = X / dual[..., None, None]
     mu0 = 1.25 / frob
@@ -119,11 +136,11 @@ def ialm_rpca_batched(
             V0 = V      # last iteration's basis; the polish re-converges it
         else:
             Eupd, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
-            _, V0 = _refined_eigh(G)
+            _, V0 = _refined_eigh(allsum(G))
         # Row-space SVD from the basis V0 and one polish round:
         # A = V diag(r) V^T M = [(V diag r) V1^T] (V0^T M) = Q W1.
         W1 = _t(V0) @ M
-        C = W1 @ _t(W1)
+        C = allsum(W1 @ _t(W1))
         d, V1 = _refined_eigh(C)
         S = torch.sqrt(torch.clamp(d, min=0.0))
         Vn = V0 @ V1
@@ -143,7 +160,7 @@ def ialm_rpca_batched(
     if warm_basis:
         # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
         M0 = X + (1.0 / mu0)[..., None, None] * Y0
-        _, V = _refined_eigh(M0 @ _t(M0))
+        _, V = _refined_eigh(allsum(M0 @ _t(M0)))
     else:
         V = torch.eye(T, dtype=dtype, device=X.device).expand(B, T, T)
     A = E = torch.zeros_like(X, dtype=sd_ae if sd_ae is not None else dtype)
@@ -163,7 +180,7 @@ def ialm_rpca_batched(
         if not bool(active.any()):
             break
         Aupd, Eupd, Ynew, mu_new, Vn, Z = update(A, Y, mu, V)
-        err_new = torch.sqrt((Z * Z).sum(dim=(-2, -1))) / frob
+        err_new = torch.sqrt(allsum((Z * Z).sum(dim=(-2, -1)))) / frob
         keep = active[..., None, None]
         A = torch.where(keep, store(Aupd, sd_ae), A)
         E = torch.where(keep, store(Eupd, sd_ae), E)

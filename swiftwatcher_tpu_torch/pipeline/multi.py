@@ -7,7 +7,10 @@ and jobs run on worker threads: while one video's windows are read or
 computed on the card, another's host tracking and CSV export proceed.
 All of them launch on the device's current stream, as the JAX package's
 videos share one dispatch queue, so their kernels run in the order the
-threads queue them.
+threads queue them.  Under a mesh (run_kwargs["mesh"], parallel/mesh.py)
+the videos share it as the JAX package's share theirs: its runs hold its
+lock, so one video's sharded batch runs on the ranks at a time and the
+collectives of two threads never interleave.
 """
 
 from __future__ import annotations

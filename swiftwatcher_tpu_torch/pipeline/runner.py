@@ -14,7 +14,11 @@ Two trackers, as in the JAX package:
     event buffer, the overflow flags and the IALM iteration counts are
     read back.
 Either can checkpoint every `checkpoint_interval_batches` batches and
-resume from its checkpoint (utils/checkpoint.py).  `profile_dir` records a
+resume from its checkpoint (utils/checkpoint.py).  With a `mesh`
+(parallel/mesh.py) each batch's localisation is sharded over the mesh's
+ranks, windows over 'data' and pixels over 'model'; this process (rank 0)
+keeps the source, stabilisation, the tracker, the classifier and the
+CSVs, as the JAX package's mesh mode does.  `profile_dir` records a
 torch.profiler trace of the run (the host always, the card's kernels on a
 card) and each batch's device time of localisation and of the tracking
 scan.
@@ -58,6 +62,8 @@ from ..io.source import FrameSource
 from ..models.classifier import upload
 from ..ops.color import bgr_to_gray_host
 from ..ops.roi_mask import generate_roi_mask
+from ..ops.stabilize import stabilize_window
+from ..parallel.mesh import sharded_localize_windows_gray
 from ..utils import checkpoint
 from ..utils.metrics import RunMetrics
 from .classify_fused import classify_track_fused, pack_fused
@@ -180,6 +186,9 @@ def run_video(
     On a CUDA device this pins full-f32 products first (`pin_numerics`).
     status_cb(frames_processed, total_frames) is called after each batch.
     tracker_impl: "host" or "device" (see the module docstring).
+    mesh: a parallel.mesh.Mesh whose rank 0 runs on `device`; each batch's
+    localisation runs sharded over it (cfg.batch_windows must divide over
+    its 'data' axis).  The events equal the unsharded run's.
     segment_filter: optional keep-mask hook (models.classifier.
     SqueezeNetSegmentFilter), called as segment_filter(table, (b, t),
     full_frame_bgr, crop_region) -> list[bool] over the frame's valid
@@ -207,10 +216,18 @@ def run_video(
     warns and writes no trace.json, but still its device stage times."""
     if tracker_impl not in ("host", "device"):
         raise ValueError(f"tracker_impl must be 'host' or 'device', got {tracker_impl!r}")
-    if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet (ROADMAP.md section 1 item 6, mesh)")
     batchable = segment_filter is not None and hasattr(segment_filter, "batch_call")
     device = torch.device(device)
+    if mesh is not None:
+        if cfg.batch_windows % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"batch_windows={cfg.batch_windows} must divide over the "
+                f"mesh 'data' axis ({mesh.shape['data']})"
+            )
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if mesh.device != device:
+            raise ValueError(f"the mesh's rank 0 runs on {mesh.device}, not on {device}")
     if device.type == "cuda":
         pin_numerics()
 
@@ -503,8 +520,15 @@ def run_video(
                 gray, wins, cursor = batch
                 metrics.stage_start("localize")
                 with annotate("localize_dispatch"), device_stage("localize"):
-                    table, iters = localize_windows_gray(gray, cfg, with_bbox=needs_frames,
-                                                         stab_ref=stab_ref)
+                    if mesh is not None:
+                        # stabilisation on the whole batch, before sharding
+                        if cfg.stabilize_max_shift > 0:
+                            gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
+                        table, iters = sharded_localize_windows_gray(
+                            gray, mesh, cfg, with_bbox=needs_frames)
+                    else:
+                        table, iters = localize_windows_gray(gray, cfg, with_bbox=needs_frames,
+                                                             stab_ref=stab_ref)
                 metrics.stage_stop("localize")
                 on_device = None
                 if use_device_tracker:

@@ -1,6 +1,7 @@
 """The per-batch localisation program.
 
-Counterpart of swiftwatcher_tpu/pipeline/window.py:localize_windows_gray:
+Counterpart of swiftwatcher_tpu/pipeline/window.py:localize_windows_gray
+(and localize_windows, its entry for BGR crops):
 
     [stabilisation] -> IALM RPCA -> fused motion filter (K1)
     -> 8-connected CCL (K2) -> uint8 label wrap -> region tables
@@ -17,6 +18,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, PipelineConfig
 from ..ops.ccl import label_components, wrap_labels_uint8
+from ..ops.color import bgr_to_gray
 from ..ops.filtering import apply_postfilter
 from ..ops.props import RegionTable, region_tables
 from ..ops.rpca import rpca_motion_window_batched
@@ -46,3 +48,10 @@ def localize_windows_gray(
     labels_u8 = wrap_labels_uint8(labels, cfg.label_modulus)
     table = region_tables(labels_u8, with_bbox=with_bbox)
     return table.map(lambda a: a.reshape(B, T, *a.shape[1:])), iters
+
+
+def localize_windows(
+    crops: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG, with_bbox: bool = False
+) -> Tuple[RegionTable, torch.Tensor]:
+    """(B, T, H, W, 3) uint8 BGR crops -> localize_windows_gray of their gray."""
+    return localize_windows_gray(bgr_to_gray(crops), cfg, with_bbox=with_bbox)

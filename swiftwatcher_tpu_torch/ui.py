@@ -49,7 +49,11 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--mesh", default=None, metavar="DATAxMODEL",
-        help="not ported yet (ROADMAP.md section 1 item 6)",
+        help="run localization over a device mesh, e.g. --mesh 4x2 = "
+        "windows data-parallel over 4 device groups, RPCA pixels "
+        "sequence-parallel over 2 (requires that many devices; "
+        "batch_windows must divide the data axis); on --device cpu the "
+        "ranks are processes and any shape works",
     )
     parser.add_argument(
         "--set", action="append", default=[], metavar="FIELD=VALUE",

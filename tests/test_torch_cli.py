@@ -6,9 +6,12 @@ since both write next to the video.  Also against the JAX CLI: an MP4
 through each decode backend, --profile (plus its trace and manifest),
 --parallel-videos 2, and --accuracy-pack on the jittered accuracy-corpus
 scene.  The pickers (cv2 click window, tkinter dialog) are driven through
-stand-ins of cv2 and tkinter beside the JAX package's.  --mesh, the one
-flag not ported, raises naming its ROADMAP.md item.  The cv2 container
-source reads an MJPG AVI as the JAX package's cv2 backend does."""
+stand-ins of cv2 and tkinter beside the JAX package's.  --mesh, the last
+flag ported (ROADMAP.md section 1 item 6), runs on the CPU's ranks and
+refuses more cards than there are as the JAX CLI refuses more devices
+(tests/test_torch_mesh_runner.py holds its counts to the JAX package's).
+The cv2 container source reads an MJPG AVI as the JAX package's cv2
+backend does."""
 
 import json
 import os
@@ -105,10 +108,22 @@ def test_cli_vs_jax_counts_and_csvs(tmp_path, video, capsys, warm, tracker):
 @pytest.mark.parametrize("flags, item", [
     (["--mesh", "2"], "item 6"),
 ])
-def test_unported_flags_raise(tmp_path, video, flags, item):
-    clip = _clip(tmp_path, video)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1 {item}"):
-        main(["--filepaths", str(clip), "--device", "cpu", *flags])
+def test_unported_flags_raise(tmp_path, video, capsys, monkeypatch, flags, item):
+    """The flag of ROADMAP.md section 1 `item`, which raised
+    NotImplementedError before it was ported, now runs: on the CPU its
+    CSVs equal the run without it.  On a card it refuses more cards than
+    there are, with the JAX CLI's message."""
+    plain = _clip(tmp_path / "plain", video)
+    assert main(["--filepaths", str(plain), "--device", "cpu"]) == 0
+    clip = _clip(tmp_path / "flag", video)
+    assert main(["--filepaths", str(clip), "--device", "cpu", *flags]) == 0
+    want = _csv_bytes(plain.parent / "clip")
+    assert len(want) == 6 and _csv_bytes(clip.parent / "clip") == want
+    capsys.readouterr()
+    monkeypatch.setattr(main_mod, "require_cuda", lambda: None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert main(["--filepaths", str(clip), *flags]) == 2
+    assert "[!] --mesh 2 needs 2 devices; only 1 available." in capsys.readouterr().err
 
 
 def _csv_bytes(d):

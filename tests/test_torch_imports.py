@@ -63,11 +63,13 @@ print("ok", len({modules!r}))
      "pipeline.classify_fused", "io.segments_export"),
     ("io.native", "io.native_av", "io.parallel_decode", "io.source", "io.prefetch",
      "ops.stabilize", "pipeline.multi", "ui"),
-], ids=["classify-export", "readers-flags"])
+    ("parallel.mesh", "models.train"),
+], ids=["classify-export", "readers-flags", "mesh-train"])
 def test_new_modules_are_checked(modules):
-    """The --classify/--export modules and the readers, stabilisation,
-    multi-video and picker modules are among those the probe below imports
-    with PIL, cv2 and h5py blocked: each imports those inside functions."""
+    """The --classify/--export modules, the readers, stabilisation,
+    multi-video and picker modules, and the mesh and the fine-tune are
+    among those the probe below imports with JAX, PIL, cv2 and h5py
+    blocked: each imports those inside functions, or not at all."""
     for m in modules:
         assert f"swiftwatcher_tpu_torch.{m}" in PORT_MODULES
 
@@ -96,7 +98,7 @@ def _imported_tops(path):
 
 @pytest.mark.parametrize(
     "script", ["chip_smoke.py", "tools/torch_profile.py", "tools/time_kernels.py",
-               "tools/torch_parity_fuzz.py"]
+               "tools/torch_parity_fuzz.py", "tools/torch_mesh_fuzz.py"]
 )
 def test_card_scripts_import_the_port_only(script):
     """The port keeps its own copies of the host modules it needs."""

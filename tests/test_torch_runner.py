@@ -7,6 +7,7 @@ version) gives the events of the port's host tracker and of the JAX
 package's device tracker (tests/test_device_runner.py's scenes)."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -95,10 +96,15 @@ def test_exported_csvs_byte_equal(tmp_path):
     assert (ours.export_dir / "run_manifest.json").is_file()
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": types.SimpleNamespace(shape={"data": 3, "model": 1},
+                                                              device=CPU)}])
 def test_unported_options_raise(kw):
+    """`mesh`, the last option ported (ROADMAP.md section 1 item 6), raises
+    as the JAX package's run_video does where the batch does not divide
+    over the mesh's 'data' axis (the 16 windows over 3 ranks here).
+    tests/test_torch_mesh_runner.py runs it on a mesh."""
     video = make_video(seed=0, n_frames=21, n_entering=0, n_crossing=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="must divide over the mesh 'data' axis"):
         run_video(ArraySource(video.frames, fps=video.fps), video.corners,
                   DEFAULT_CONFIG, CPU, **kw)
 
