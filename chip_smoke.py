@@ -50,16 +50,25 @@ path (`run_video`) end to end:
      rpca_warm_basis=False and its default device tracker on the small
      scene as a .npy clip: 2 predicted / 1 rejected, and six CSVs
      byte-equal to run_video with the device tracker on the CPU;
- 11. T1 (the device tracker's scan, csrc/track_scan.cu) vs its plain
+ 11. T1 (the device tracker's scan, csrc/track_scan.cu: T1a, the prologue
+     over all frames, then T1b, the frame chain in one warp) vs its plain
      version at track_enum_lap 0, 4 and 6, on the compacted tables of the
-     close-pass batch and on seeded K = 24 streams (0-30 segments a frame:
+     close-pass batch, on seeded K = 24 streams (0-30 segments a frame:
      enumeration and JV frames, up to 24 live tracks, compact_tables
-     overflow frames, an inactive tail, and an event-buffer overflow):
-     state, events, count and overflow bit-equal; its time beside the
-     plain version's and the host SegmentTracker's on the close-pass batch;
-     then run_video over the 1008 frames with tracker_impl="device": one
-     launch per batch, K1 and K2 launched, and events equal to phase 6's
-     (frame numbers, centroids within 1e-3) with the same totals;
+     overflow frames, an inactive tail, and an event-buffer overflow), a
+     K = 64 stream of 0-60 segments (4 columns a lane), a K = 33 stream (66
+     columns) and a stream of busy runs between runs of 50-70 empty frames
+     (one at the batch edge): state, events, count and overflow bit-equal,
+     and T1a's records bit-equal to track_prologue_reference; the dense
+     and the empty-stretch streams' states carried into a second launch;
+     the latency of one dependent warp argmin (both forms) and of a shared
+     load and a ballot, from micro-kernels (csrc/t1_latency.cu); T1's time on each stream beside
+     its latency bound (frames with work x the latter + Dijkstra steps and
+     enumeration argmins x the former), and on the close-pass batch beside
+     the plain version's and the host SegmentTracker's; then run_video
+     over the 1008 frames with tracker_impl="device": one call per batch,
+     two kernels a call as the launcher counts them, K1 and K2 launched, and events equal to phase 6's (frame numbers,
+     centroids within 1e-3) with the same totals;
  12. --classify and --export: the PIL-exact preprocess on the card
      bit-equal to the CPU at 100 crop sizes; the SqueezeNet forward on the
      card vs the CPU on the close-pass batch's crops and on seeded canvases
@@ -124,7 +133,9 @@ behind a spin, so the host's dispatch is not timed).  Each
 kernel's `bound_ms` is the larger of the bytes it must move (each input
 read once, each output written once) over the card's memory rate and the
 operations it does on this run's inputs over the f32 rate (`bound`); T1 is
-bound by neither but by the latency of its frame chain.  No single PyTorch
+bound by neither but by the latency of its frame chain, which its entry
+gives as `latency_bound_ms` (phase 11), beside `kernels_per_launch` (the
+kernels its launcher counted over the main path's calls, per call).  No single PyTorch
 call computes any of K1-K6 or T1, so `library_ms` is null.  Exits
 nonzero, printing no result, on any failure or when no CUDA device exists.
 """
@@ -410,19 +421,20 @@ def k6_state(torch, gray, cfg):
 
 
 def fuzz_tables(np, torch, rng, T: int, H: int, W: int, most: int, dev):
-    """A (T, 256) region table of 30 blobs moving a few pixels a frame
-    (labels 1 + 8 k), 0 to `most` of them present in each frame, sometimes
-    the first ones and sometimes any; from `most` > 24 on, frames overflow
-    compact_tables' 24 slots."""
+    """A (T, 256) region table of max(30, `most`) blobs moving a few pixels
+    a frame (labels 1 + 8 k for 30 of them, spaced 255 // n apart for more),
+    0 to `most` of them present in each frame, sometimes the first ones and
+    sometimes any; frames with more than K overflow compact_tables' K
+    slots."""
     from swiftwatcher_tpu_torch.ops.props import RegionTable
 
-    n = 30
+    n = max(30, most)
     pos = rng.uniform((0, 0), (H, W), (n, 2))
     vel = rng.uniform(-6, 6, (n, 2))
     valid = np.zeros((T, 256), bool)
     area = np.zeros((T, 256), np.int32)
     sum_y, sum_x = np.zeros_like(area), np.zeros_like(area)
-    labels = 1 + 8 * np.arange(n)
+    labels = 1 + (8 if n == 30 else 255 // n) * np.arange(n)
     for t in range(T):
         pos = np.clip(pos + vel, 0, (H - 1, W - 1))
         k = int(rng.integers(0, most + 1))
@@ -437,6 +449,53 @@ def fuzz_tables(np, torch, rng, T: int, H: int, W: int, most: int, dev):
         area=torch.from_numpy(area).to(dev), sum_y=torch.from_numpy(sum_y).to(dev),
         sum_x=torch.from_numpy(sum_x).to(dev), min_y=zero, min_x=zero, max_y=zero,
         max_x=zero, valid=torch.from_numpy(valid).to(dev))
+
+
+def empty_stretch_tables(np, torch, rng, T: int, H: int, W: int, dev):
+    """fuzz_tables with 0-8 segments a frame in busy runs of 10-30 frames
+    between empty runs of 50-70 frames; the last run, at the batch edge, is
+    empty."""
+    table = fuzz_tables(np, torch, rng, T, H, W, 8, dev)
+    empty = np.zeros(T, bool)
+    t, busy = T, False
+    while t > 0:  # from the edge back: empty, busy, empty, ...
+        n = int(rng.integers(10, 31) if busy else rng.integers(50, 71))
+        empty[max(t - n, 0):t] = not busy
+        t, busy = t - n, not busy
+    table.valid[torch.from_numpy(empty).to(dev)] = False
+    return table
+
+
+def t1_latencies(torch, build, dev, steps: int = 1 << 16) -> dict:
+    """Nanoseconds per step of csrc/t1_latency.cu's micro-kernels
+    (one warp, `steps` dependent steps, CUDA events around one launch after
+    a warm-up): "argmin" T1b's (value, index) argmin by two __reduce_min_sync,
+    "butterfly" the 5-step xor-butterfly, "frame" one shared-memory load and
+    one ballot."""
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    ns = {}
+    for which, name in enumerate(("argmin", "butterfly", "frame")):
+        args = ("t1_latency", "swt_t1_latency", dev, which, steps, 0, out.data_ptr())
+        build.launch(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        build.launch(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        ns[name] = start.elapsed_time(stop) * 1e6 / steps
+    return ns
+
+
+def t1_latency_bound(stats, lat: dict) -> float:
+    """T1's latency bound in ms from its counts (td.STAT_NAMES): every
+    frame with work pays one staged load and one ballot, every Dijkstra
+    step and enumeration argmin one dependent argmin (the faster of the
+    two measured)."""
+    t_argmin = min(lat["argmin"], lat["butterfly"])
+    return (stats["work frames"] * lat["frame"]
+            + (stats["Dijkstra steps"] + stats["enumeration frames"]) * t_argmin) * 1e-6
 
 
 def track_bound(cys, valids, count: int, n_pats: int):
@@ -502,8 +561,9 @@ def run() -> None:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     # 2. build
-    secs = build.build_all()
-    print(f"phase 2 build: {secs:.2f} s for {', '.join(build.KERNEL_SOURCES)}", flush=True)
+    sources = build.KERNEL_SOURCES + build.TOOL_SOURCES
+    secs = build.build_all(sources)
+    print(f"phase 2 build: {secs:.2f} s for {', '.join(sources)}", flush=True)
 
     # 3. K1 at the main path's shape: RPCA motion of one batch of the scene
     t0 = time.perf_counter()
@@ -931,31 +991,82 @@ def run() -> None:
                     (ccy + 0.5 * torch.arange(T_c, device=dev)[:, None], ccx, cval,
                      torch.arange(T_c, dtype=torch.int32, device=dev),
                      torch.ones(T_c, dtype=torch.bool, device=dev))))
+    # wider K (4 and 3 columns a lane, 66 not a multiple of 32) and long
+    # empty stretches, one at the batch edge
+    for what, T_s, most, K_s in (("a K = 64 dense stream", 4 * T, 60, 64),
+                                 ("a K = 33 stream", 4 * T, 40, 33)):
+        ft = fuzz_tables(np, torch, rng, T_s, H, W, most, dev)
+        fcy, fcx, fval, _ = td.compact_tables(ft, K_s)
+        streams.append((what, roi, (fcy, fcx, fval, torch.arange(T_s, dtype=torch.int32,
+                                                                   device=dev),
+                                    torch.arange(T_s, device=dev) < T_s - T)))
+    empty_in = []
+    for _ in range(2):
+        fcy, fcx, fval, _ = td.compact_tables(
+            empty_stretch_tables(np, torch, rng, B * T, H, W, dev), K)
+        empty_in.append((fcy, fcx, fval, torch.arange(B * T, dtype=torch.int32, device=dev),
+                         torch.ones(B * T, dtype=torch.bool, device=dev)))
+    streams.append(("a long-empty-stretch stream", roi, empty_in[0]))
     check(n_over > 0, "no fuzz frame overflows compact_tables")
+
+    def t1_check(state, r, inputs, c, what):
+        """T1 (and T1a's records) vs the plain versions: (state, events)."""
+        args = (state, r, *(x.contiguous() for x in inputs[:3]), *inputs[3:4], c, inputs[4])
+        pro1, pro0 = td.track_prologue(*args).to_numpy(), td.track_prologue_reference(*args)
+        for name, a in pro0.to_numpy().items():
+            check(np.array_equal(a, pro1[name]),
+                  f"T1a's {name} differs from track_prologue_reference on {what}")
+        s1, e1 = td.track_window(*args)
+        s0, e0 = td.track_window_reference(*args)
+        torch.cuda.synchronize()
+        for name, a in s0.to_numpy().items():
+            check(np.array_equal(a, s1.to_numpy()[name]),
+                  f"T1 state.{name} differs from its plain version on {what}")
+        for name, a in e0.to_numpy().items():
+            check(np.array_equal(a, e1.to_numpy()[name]),
+                  f"T1 events.{name} differ from its plain version on {what}")
+        return s1, e1
+
     t1_overflowed = False
-    for what, r, (ycs, xcs, vals, fns, act) in streams:
+    carried = {}
+    for what, r, inputs in streams:
+        vals, act = inputs[2], inputs[4]
         live = vals.sum(1)
         for n_enum in (0, 4, 6):
             c = dataclasses.replace(cfg, track_enum_lap=n_enum)
-            args = (td.empty_state(K, dev), r, ycs.contiguous(), xcs.contiguous(),
-                    vals.contiguous(), fns, c, act)
-            s1, e1 = td.track_window(*args)
-            s0, e0 = td.track_window_reference(*args)
-            torch.cuda.synchronize()
-            for name, a in s0.to_numpy().items():
-                check(np.array_equal(a, s1.to_numpy()[name]),
-                      f"T1 state.{name} differs from its plain version on {what}, enum {n_enum}")
-            for name, a in e0.to_numpy().items():
-                check(np.array_equal(a, e1.to_numpy()[name]),
-                      f"T1 events.{name} differ from its plain version on {what}, enum {n_enum}")
+            s1, e1 = t1_check(td.empty_state(vals.shape[1], dev), r, inputs, c,
+                              f"{what}, enum {n_enum}")
             t1_overflowed |= bool(e1.overflow)
-        print(f"phase 11 T1 bit-equal to plain on {what} ({vals.shape[0]} frames: "
-              f"{int((live == 0).sum())} empty, {int(((live > 0) & (live <= 4)).sum())} with "
-              f"1-4 slots, {int((live > 4).sum())} with 5 or more (most {int(live.max())}), "
-              f"{int((~act).sum())} inactive) at track_enum_lap 0, 4, 6: {int(e0.count)} events, "
-              f"overflow {bool(e0.overflow)}", flush=True)
+            carried[what] = s1
+        print(f"phase 11 T1 and T1a bit-equal to plain on {what} ({vals.shape[0]} frames, K = "
+              f"{vals.shape[1]}: {int((live == 0).sum())} empty, "
+              f"{int(((live > 0) & (live <= 4)).sum())} with 1-4 slots, {int((live > 4).sum())} "
+              f"with 5 or more (most {int(live.max())}), {int((~act).sum())} inactive) at "
+              f"track_enum_lap 0, 4, 6: {int(e1.count)} events, overflow {bool(e1.overflow)}",
+              flush=True)
     check(t1_overflowed, "no stream overflowed the event buffer")
+    # states carried into a second launch: the dense stream's live tracks
+    # into the long empty stretches, and those (ending empty) into more
+    for first, second in (("a dense stream", empty_in[0]),
+                          ("a long-empty-stretch stream", empty_in[1])):
+        for n_enum in (0, 4, 6):
+            t1_check(carried[first], roi, second,
+                     dataclasses.replace(cfg, track_enum_lap=n_enum),
+                     f"a second launch after {first}, enum {n_enum}")
+    print(f"phase 11 T1 bit-equal to plain with the state of the dense and of the "
+          f"long-empty-stretch stream carried into a second launch of long empty stretches "
+          f"(live tracks in: {int(carried['a dense stream'].valid.sum())})", flush=True)
     print(f"phase 11 fuzz frames over compact_tables' {K} slots: {n_over}", flush=True)
+    lat = t1_latencies(torch, build, dev)
+    print(f"phase 11 T1 latencies, one warp, ns per dependent step: argmin (two "
+          f"__reduce_min_sync) {lat['argmin']:.3f}, xor-butterfly {lat['butterfly']:.3f}, "
+          f"shared load + ballot {lat['frame']:.3f} [{card}]", flush=True)
+
+    def t1_counts(args):
+        stats = torch.zeros(len(td.STAT_NAMES), dtype=torch.int64, device=dev)
+        td.scan_cuda(*args, stats=stats)
+        return dict(zip(td.STAT_NAMES, stats.tolist()))
+
     _, (ycs, xcs, vals, fns, act) = streams[0][1:]
     t1_args = (td.empty_state(K, dev), roi, ycs.contiguous(), xcs.contiguous(),
                vals.contiguous(), fns, cfg, act)
@@ -963,6 +1074,8 @@ def run() -> None:
                                       lambda: td.track_window(*t1_args), reps=2, what="T1")
     _, t1_events = td.track_window(*t1_args)
     t1_bound = track_bound(ycs, vals, int(t1_events.count), len(td._pattern_table(4)))
+    t1_stats = t1_counts(t1_args)
+    t1_latency = t1_latency_bound(t1_stats, lat)
     # the host tracker on the same batch: its table read back, centroids, steps
     roi_np = roi.cpu().numpy()
     torch.cuda.synchronize()
@@ -980,21 +1093,27 @@ def run() -> None:
     check(len(ev_dev) == len(ev_host) > 0 and all(
         d[0] == h[0] and np.allclose(d[1:], h[1:], atol=1e-3) for d, h in zip(ev_dev, ev_host)),
         "T1's events on the close-pass batch differ from the host tracker's")
-    for what, _, (ycs, xcs, vals, fns, act) in streams[1:]:
-        a = (td.empty_state(K, dev), roi, ycs.contiguous(), xcs.contiguous(),
+    for what, r, (ycs, xcs, vals, fns, act) in streams[1:]:
+        a = (td.empty_state(vals.shape[1], dev), r, ycs.contiguous(), xcs.contiguous(),
              vals.contiguous(), fns, cfg, act)
+        n = t1_counts(a)
         print(f"phase 11 T1 time on {what}: {time_ms(torch, lambda: td.track_window(*a), 10, 'T1'):.4f} "
-              f"ms [{card}]", flush=True)
+              f"ms, latency bound {t1_latency_bound(n, lat):.4f} ms ({n['work frames']} frames with "
+              f"work, {n['Dijkstra steps']} Dijkstra steps in {n['JV rows']} JV rows, "
+              f"{n['enumeration frames']} enumeration argmins) [{card}]", flush=True)
     print(f"phase 11 T1 on the close-pass batch ({B * T} frames, {len(ev_dev)} events as the "
-          f"host tracker's): kernel {t1_ms:.4f} ms, plain {t1_plain_ms:.4f} ms, host "
+          f"host tracker's): T1a + T1b {t1_ms:.4f} ms, plain {t1_plain_ms:.4f} ms, host "
           f"SegmentTracker {host_ms:.4f} ms ({host_steps_ms:.4f} ms of steps after "
-          f"{host_ms - host_steps_ms:.4f} ms of table read-back), bound {t1_bound[0]:.6f} ms "
-          f"({t1_bound[1]}; the kernel is bound by the latency of its frame chain) [{card}]",
-          flush=True)
+          f"{host_ms - host_steps_ms:.4f} ms of table read-back), latency bound "
+          f"{t1_latency:.4f} ms ({t1_stats['work frames']} frames with work x "
+          f"{lat['frame']:.3f} ns + {t1_stats['Dijkstra steps'] + t1_stats['enumeration frames']} "
+          f"argmins x {min(lat['argmin'], lat['butterfly']):.3f} ns); byte bound "
+          f"{t1_bound[0]:.6f} ms [{card}]", flush=True)
 
     wrappers["track_window"] = td.track_window
     for name in ("fused_motion_filter", "label_rank_fused", "track_window"):
         wrappers[name].launches = 0
+    td.track_window.kernels = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r11 = run_video(LoopingArraySource(bench.frames, total=n_frames, fps=bench.fps),
@@ -1003,14 +1122,18 @@ def run() -> None:
     secs11 = time.perf_counter() - t0
     dev_launches = {name: wrappers[name].launches
                     for name in ("fused_motion_filter", "label_rank_fused", "track_window")}
+    t1_kernels = td.track_window.kernels
     print(f"phase 11 run_video 1080p, device tracker: {r11.frames_processed} frames in "
           f"{secs11:.2f} s = {r11.frames_processed / secs11:.1f} frames/s (host tracker, phase "
           f"6: {r6.frames_processed / secs:.1f}) [{card}], {len(r11.events)} events "
           f"({r11.total_predicted} predicted / {r11.total_rejected} rejected), "
-          f"{r11.metrics.batches} batches, launches {dev_launches}", flush=True)
+          f"{r11.metrics.batches} batches, launches {dev_launches}, T1 kernels {t1_kernels}",
+          flush=True)
     check(r11.frames_processed == n_frames, "device-tracker run processed the wrong frame count")
     check(dev_launches["track_window"] == r11.metrics.batches > 0,
           "T1 was not launched once per batch")
+    check(t1_kernels == 2 * dev_launches["track_window"],
+          "T1's launcher did not launch T1a and T1b on every call")
     check(dev_launches["fused_motion_filter"] > 0 and dev_launches["label_rank_fused"] > 0,
           "K1 or K2 was not launched on the device-tracker run")
     check((r11.total_predicted, r11.total_rejected) == (r6.total_predicted, r6.total_rejected),
@@ -1088,7 +1211,9 @@ def run() -> None:
         "source": "swiftwatcher_tpu_torch/csrc/track_scan.cu",
         "replaces": "swiftwatcher_tpu/pipeline/tracking_jax.py:410",
         "launches": dev_launches["track_window"], "max_abs_err": 0,  # bit-equal, checked
-        "ms": t1_ms, "plain_ms": t1_plain_ms})
+        "ms": t1_ms, "plain_ms": t1_plain_ms,
+        "kernels_per_launch": t1_kernels / dev_launches["track_window"],
+        "latency_bound_ms": t1_latency})
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
@@ -1644,12 +1769,13 @@ def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, se
         names = {e.get("name", "") for e in trace["traceEvents"]}
         entries = ("swt_fused_motion", "swt_label_rank_fused", "swt_track_scan")
         check(all(n in names for n in entries), f"the trace lacks one of {entries}")
-        # the kernels of K1, K2 and T1, where the profiler traced the card
-        # (CUPTI) at all
+        # the kernels of K1, K2 and T1 (T1a and T1b), where the profiler
+        # traced the card (CUPTI) at all
         device_events = [e.get("name", "") for e in trace["traceEvents"]
                          if e.get("cat") == "kernel"]
         kernels = {k: sum(k in n for n in device_events)
-                   for k in ("fused_motion_kernel", "label_tiles_kernel", "track_scan_kernel")}
+                   for k in ("fused_motion_kernel", "label_tiles_kernel",
+                             "track_prologue_kernel", "track_chain_kernel")}
         check(not device_events or all(kernels.values()),
               f"the trace has {len(device_events)} kernels but not each of {kernels}")
         manifest = json.loads((clip.parent / "clip" / "run_manifest.json").read_text())

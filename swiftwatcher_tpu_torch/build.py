@@ -4,12 +4,14 @@ Each `csrc/<name>.cu` is compiled at first use by `nvcc` into a shared
 library with a plain C interface and loaded with `ctypes`.  Libraries go to
 `build/kernels/` at the root of the checkout, named by a hash of the
 sources and flags, so a changed source is rebuilt and an unchanged one is
-reused.  The host decoders (`native/<name>.cpp` at the root of the
-checkout, the libjpeg frame pump and the libav reader) are built the same
-way by g++ into `build/native/`; their hash also covers this host's CPU,
-since they are built for it (`-march=native`).  Each library is built once
-per process, under a lock, so threads that need it first together do not
-build it twice.  Nothing here runs at import time.
+reused.  A library built with preprocessor defines (`load_library(name,
+defines)`, which only tools ask for) is a library of its own.  The host
+decoders (`native/<name>.cpp` at the root of the checkout, the libjpeg
+frame pump and the libav reader) are built the same way by g++ into
+`build/native/`; their hash also covers this host's CPU, since they are
+built for it (`-march=native`).  Each library is built once per process,
+under a lock, so threads that need it first together do not build it
+twice.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -95,12 +97,21 @@ _SIGNATURES = {
             *[_VOID_P] * 5, _INT, _INT,                 # frames; T, K
             _VOID_P, _INT, _INT,                        # pattern table, its rows, n_enum
             *[_FLOAT] * 8,                              # cost constants
-            *[_VOID_P] * 14, _INT, _VOID_P,             # state out, events; cap; stream
+            _VOID_P, _INT,                              # records; prologue only
+            *[_VOID_P] * 14, _INT, _VOID_P,             # state out, events; cap; stats
+            _VOID_P, _VOID_P,                           # kernels launched (host int); stream
         ],
+    },
+    # T1's latency micro-kernels (chip_smoke.py phase 11), no part of the port
+    "t1_latency": {
+        "swt_t1_latency": [_INT, _INT, _INT, _VOID_P, _VOID_P],
     },
 }
 
-KERNEL_SOURCES = tuple(sorted(_SIGNATURES))
+# The sources of the port's kernels (built by build_all), and the one that
+# only measures them.
+TOOL_SOURCES = ("t1_latency",)
+KERNEL_SOURCES = tuple(sorted(n for n in _SIGNATURES if n not in TOOL_SOURCES))
 
 
 def _nvcc() -> str:
@@ -116,12 +127,16 @@ def _nvcc() -> str:
     )
 
 
-def _library_path(name: str) -> Path:
+def _nvcc_flags(defines: Sequence[str]) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def _library_path(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256()
     for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_nvcc_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -159,10 +174,10 @@ def _compile(cmd_head: Sequence[str], cmd_tail: Sequence[str], lib_path: Path, w
             os.unlink(tmp)
 
 
-def _load_kernel_library(name: str) -> ctypes.CDLL:
-    lib_path = _library_path(name)
+def _load_kernel_library(name: str, defines: Sequence[str]) -> ctypes.CDLL:
+    lib_path = _library_path(name, defines)
     if not lib_path.exists():
-        _compile([_nvcc(), *NVCC_FLAGS], [str(CSRC / f"{name}.cu")], lib_path,
+        _compile([_nvcc(), *_nvcc_flags(defines)], [str(CSRC / f"{name}.cu")], lib_path,
                  f"nvcc for {name}.cu")
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in _SIGNATURES[name].items():
@@ -171,9 +186,11 @@ def _load_kernel_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`, with argtypes set."""
-    return _once(("cuda", name), lambda: _load_kernel_library(name))
+def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`, with argtypes set;
+    `defines` are passed to nvcc as -D flags."""
+    defines = tuple(defines)
+    return _once(("cuda", name, defines), lambda: _load_kernel_library(name, defines))
 
 
 def _host_cpu() -> bytes:
@@ -222,12 +239,13 @@ def load_native(name: str, libs: Sequence[str], bind) -> Optional[ctypes.CDLL]:
     return _once(("native", name), lambda: _load_native(name, tuple(libs), bind))
 
 
-def build_all() -> float:
-    """Build and load every kernel, one nvcc per source, all started
-    together; returns the seconds it took."""
+def build_all(names: Sequence[str] = KERNEL_SOURCES) -> float:
+    """Build and load the sources `names` (default: every kernel of the
+    port), one nvcc per source, all started together; returns the seconds
+    it took."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:
-        for future in [pool.submit(load_library, name) for name in KERNEL_SOURCES]:
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for future in [pool.submit(load_library, name) for name in names]:
             future.result()
     return time.perf_counter() - t0
 
@@ -245,12 +263,13 @@ def check_operand(what: str, t: torch.Tensor, dtype: torch.dtype, like=None) -> 
         raise ValueError(f"{what}: input must be contiguous")
 
 
-def launch(name: str, entry: str, device: torch.device, *args) -> None:
-    """Call C launcher `entry` of `csrc/<name>.cu` with `args` and the
-    current stream of `device`; raise if it returns a nonzero cudaError_t.
-    While a profiler runs, its trace shows the call as a range named
-    `entry`."""
-    lib = load_library(name)
+def launch(name: str, entry: str, device: torch.device, *args,
+           defines: Sequence[str] = ()) -> None:
+    """Call C launcher `entry` of `csrc/<name>.cu` (built with `defines`)
+    with `args` and the current stream of `device`; raise if it returns a
+    nonzero cudaError_t.  While a profiler runs, its trace shows the call
+    as a range named `entry`."""
+    lib = load_library(name, defines)
     traced = (torch.profiler.record_function(entry) if torch.autograd._profiler_enabled()
               else contextlib.nullcontext())
     with traced, torch.cuda.device(device):

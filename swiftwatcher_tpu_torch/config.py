@@ -163,8 +163,8 @@ class PipelineConfig:
     av_gray_decode: bool = True
     # ----- wire transport ----------------------------------------------------
     # The JAX package's host->device wire codec.  The port uploads raw u8
-    # crops and does not port the codec (ROADMAP.md section 1, "Do not
-    # port"); these fields have no effect in the port.
+    # crops and has not ported the codec (ROADMAP.md section 1, "Modules
+    # the port still lacks"); these fields have no effect in the port.
     wire_codec: str = "auto"
     wire_escape_cap: int = 65536
     wire_auto_mbps: float = 1000.0

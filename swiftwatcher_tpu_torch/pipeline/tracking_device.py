@@ -14,19 +14,28 @@ Cost-matrix layout over fixed capacity K = cfg.max_tracks (2K x 2K):
   reference's "impossible" filler); valid-vs-padding cells = _BIG.
 Exponents are clamped at cfg.cost_exp_clamp.
 
-On a CUDA tensor `track_window` launches csrc/track_scan.cu: the scan of
-one batch in one launch, one block that keeps the state, the match block
-and the LAP's duals in shared memory.  On a CPU tensor it runs
-`track_window_reference`, the plain per-frame loop, which is also what the
-kernel is held against on the card.
+On a CUDA tensor `track_window` launches csrc/track_scan.cu's two kernels
+(one call, no host wait).  T1a, one block a frame, writes each frame's
+chain-free pieces: the state's positions and validity at that frame (the
+slots of the last active frame before it), the K x K distance terms and
+current angles of the match block, the previous slots' ROI flags, the
+frame's kind and the next frame with work (`track_prologue`; its plain
+version `track_prologue_reference`).  T1b, one warp, walks the frames
+with work only, the matching's histories being all that the chain
+carries.  On a CPU tensor it runs `track_window_reference`, the plain
+per-frame loop, which is also what the kernels are held against on the
+card.
 
 cfg.track_scan_chunk and cfg.track_stacked_ops are accepted and change
 nothing: they reorganise the JAX scan for the TPU, and its outputs are
-identical for any value of either (tests/test_tracking_jax.py).
+identical for any value of either (tests/test_tracking_jax.py).  T1b
+skips every stretch of empty frames exactly, which is what a chunk of the
+JAX scan does when its chunk is empty.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Mapping, Optional, Tuple
@@ -43,9 +52,12 @@ from ..ops.hungarian import solve_lap
 _EPS32 = float(np.float32(1.1920929e-07))
 _BIG = float(np.float32(1e9))
 
-# The largest max_tracks the kernel takes (one thread per column of the
-# 2K x 2K cost matrix, at most 128 threads).
+# The largest max_tracks the kernels take (T1b's lane owns at most 4
+# columns of the 2K x 2K cost matrix and 2 slots).
 MAX_KERNEL_TRACKS = 64
+
+# Frame kinds (Prologue.kind).
+INACTIVE, EMPTY, ENUMERATION, JV = 0, 1, 2, 3
 
 
 def _f32(x: float) -> float:
@@ -143,16 +155,22 @@ def _consts(cfg: PipelineConfig) -> _Consts:
     )
 
 
-def _match_block(state: TrackState, cy, cx, cfg: PipelineConfig) -> torch.Tensor:
-    """(K, K) f32 match costs 0.5*d_cost + 0.5*a_cost for every (prev slot,
-    curr slot) pair, validity-agnostic (callers mask)."""
-    c = _consts(cfg)
-    dy = state.cy[:, None] - cy[None, :]
-    dx = state.cx[:, None] - cx[None, :]
+def _pair_terms(prev_cy, prev_cx, cy, cx, c: _Consts):
+    """The chain-free terms of the match block for previous slots (rows)
+    and current slots (columns): the distance term 2^min(dist - knee,
+    clamp) and the current angle deg * atan2(dy, -dx)."""
+    dy = prev_cy[:, None] - cy[None, :]
+    dx = prev_cx[:, None] - cx[None, :]
     d = torch.sqrt(dy * dy + dx * dx)
     d_cost = torch.exp2(torch.clamp_max(d - c.dist_knee, c.clamp))
+    return d_cost, c.deg * torch.atan2(dy, -dx)
+
+
+def _assemble(d_cost, new_angle, state: TrackState, c: _Consts) -> torch.Tensor:
+    """The match block from its chain-free terms and the rows' histories:
+    0.5 * d_cost + 0.5 * a_cost, a_cost the angle term of rows with history
+    (1 for the others)."""
     old_angle = c.deg * torch.atan2(state.first_cy - state.cy, -(state.first_cx - state.cx))
-    new_angle = c.deg * torch.atan2(dy, -dx)
     diff = (new_angle - old_angle[:, None]).abs()
     diff = torch.minimum(diff, 360.0 - diff)
     a_cost = torch.where(
@@ -161,6 +179,22 @@ def _match_block(state: TrackState, cy, cx, cfg: PipelineConfig) -> torch.Tensor
         1.0,
     )
     return 0.5 * d_cost + 0.5 * a_cost
+
+
+def _match_block(state: TrackState, cy, cx, cfg: PipelineConfig) -> torch.Tensor:
+    """(K, K) f32 match costs 0.5*d_cost + 0.5*a_cost for every (prev slot,
+    curr slot) pair, validity-agnostic (callers mask)."""
+    c = _consts(cfg)
+    return _assemble(*_pair_terms(state.cy, state.cx, cy, cx, c), state, c)
+
+
+def _in_roi(cy, cx, roi_mask) -> torch.Tensor:
+    """(K,) bool: each centroid's ROI-mask pixel is 255 (coordinates
+    truncated and clamped to the mask)."""
+    Hm, Wm = roi_mask.shape
+    iy = cy.to(torch.int32).clamp(0, Hm - 1)
+    ix = cx.to(torch.int32).clamp(0, Wm - 1)
+    return roi_mask.reshape(-1)[(iy * Wm + ix).long()] == 255
 
 
 def _cost_matrix(state: TrackState, cy, cx, valid, cfg: PipelineConfig) -> torch.Tensor:
@@ -248,11 +282,7 @@ def _step_full(state: TrackState, events: EventBuffer, cy, cx, valid, fn, roi_ma
     disappeared = state.valid & (prev_match < 0)
 
     # events: disappeared inside the ROI with history
-    Hm, Wm = roi_mask.shape
-    iy = state.cy.to(torch.int32).clamp(0, Hm - 1)
-    ix = state.cx.to(torch.int32).clamp(0, Wm - 1)
-    in_roi = roi_mask.reshape(-1)[(iy * Wm + ix).long()] == 255
-    is_event = disappeared & in_roi & (state.hist_len >= 1)
+    is_event = disappeared & _in_roi(state.cy, state.cx, roi_mask) & (state.hist_len >= 1)
     cap = events.first_cy.shape[0]
     # event slot k lands at count + its rank among events in ascending slot
     # order; slots at or past the cap are dropped
@@ -328,10 +358,126 @@ def track_window_reference(
 @functools.lru_cache(maxsize=None)
 def _device_patterns(n: int, device: torch.device) -> torch.Tensor:
     """_pattern_table(n) on `device`, one int32 per pattern: row p's column
-    in bits 3p..3p+2, 7 where the row is unmatched."""
+    in bits 3p..3p+2, 7 where the row is unmatched; padded to a multiple of
+    32 with patterns whose row 0 takes column 6, which T1b scores +inf."""
     pats = _pattern_table(n)
     cols = np.where(pats >= 0, pats, 7).astype(np.int64)
-    return torch.from_numpy((cols << (3 * np.arange(n))).sum(axis=1).astype(np.int32)).to(device)
+    codes = (cols << (3 * np.arange(n))).sum(axis=1)
+    codes = np.concatenate([codes, np.full(-len(codes) % 32, 6, np.int64)])
+    return torch.from_numpy(codes.astype(np.int32)).to(device)
+
+
+def _prev_frames(cys, active):
+    """(T,) int64: the last active frame before each frame, -1 if none."""
+    T = cys.shape[0]
+    idx = torch.arange(T, device=cys.device)
+    last = torch.cummax(torch.where(active, idx, -1), 0).values
+    return torch.cat([last.new_full((1,), -1), last[:-1]])
+
+
+@dataclasses.dataclass
+class Prologue:
+    """Each frame's chain-free pieces (T1a's output; `track_prologue`)."""
+
+    prev_cy: torch.Tensor     # (T, K) f32: the state's centroids at frame t
+    prev_cx: torch.Tensor
+    prev_valid: torch.Tensor  # (T, K) bool: the state's validity at frame t
+    prev_fn: torch.Tensor     # (T,) int32: the state's frame number at frame t
+    valid: torch.Tensor       # (T, K) bool: the frame's own slots
+    dist: torch.Tensor        # (T, K, K) f32: 2^min(dist - knee, clamp), (prev, curr)
+    angle: torch.Tensor       # (T, K, K) f32: deg * atan2(dy, -dx), (prev, curr)
+    roi: torch.Tensor         # (T, K) bool: the previous slot lies in the ROI
+    kind: torch.Tensor        # (T,) int32: INACTIVE, EMPTY, ENUMERATION or JV
+    next: torch.Tensor        # (T,) int32: the first frame after t with work, T if none
+    src: torch.Tensor         # (T,) int32: the last active frame before t, -1 if none
+    last_active: torch.Tensor  # () int32: the batch's last active frame, -1 if none
+
+    def to_numpy(self) -> dict:
+        return {f.name: getattr(self, f.name).cpu().numpy() for f in dataclasses.fields(self)}
+
+
+def track_prologue_reference(state: TrackState, roi_mask, cys, cxs, valids, fns,
+                             cfg: PipelineConfig = DEFAULT_CONFIG,
+                             active: Optional[torch.Tensor] = None) -> Prologue:
+    """Plain PyTorch version of T1a.  The state's positions, validity and
+    frame number at frame t are those of the last active frame before t
+    (linking and the empty-frame reset both copy the frame's slots; the
+    incoming state before the first).  A frame has work (ENUMERATION or
+    JV) if it is active and it or that state has a valid slot; it fits the
+    enumeration if all of those slots lie below cfg.track_enum_lap.  The
+    planes are `_pair_terms` of each frame, as `_match_block` computes
+    them."""
+    T, K = cys.shape
+    dev = cys.device
+    act = torch.ones(T, dtype=torch.bool, device=dev) if active is None else active.bool()
+    src = _prev_frames(cys, act)
+    has = (src >= 0)[:, None]
+    at = src.clamp(min=0)
+    prev_cy = torch.where(has, cys[at], state.cy[None, :])
+    prev_cx = torch.where(has, cxs[at], state.cx[None, :])
+    prev_valid = torch.where(has, valids[at], state.valid[None, :])
+    prev_fn = torch.where(src >= 0, fns.to(torch.int32)[at], state.fn).to(torch.int32)
+    c = _consts(cfg)
+    terms = [_pair_terms(prev_cy[t], prev_cx[t], cys[t], cxs[t], c) for t in range(T)]
+    empty = torch.zeros((0, K, K), dtype=torch.float32, device=dev)
+    dist = torch.stack([d for d, _ in terms]) if T else empty
+    angle = torch.stack([a for _, a in terms]) if T else empty
+    n = int(cfg.track_enum_lap)
+    live = prev_valid | valids
+    fits = ~live[:, n:].any(1) if 0 < n < K else torch.zeros_like(act)
+    kind = torch.where(~act, INACTIVE, torch.where(
+        ~live.any(1), EMPTY, torch.where(fits, ENUMERATION, JV))).to(torch.int32)
+    idx = torch.arange(T, device=dev)
+    first_from = torch.flip(torch.cummin(torch.flip(
+        torch.where(kind >= ENUMERATION, idx, T), [0]), 0).values, [0])
+    nxt = torch.cat([first_from[1:], first_from.new_full((1,), T)])[:T]
+    last = torch.where(act, idx, -1).max() if T else torch.tensor(-1, device=dev)
+    return Prologue(
+        prev_cy=prev_cy, prev_cx=prev_cx, prev_valid=prev_valid, prev_fn=prev_fn,
+        valid=valids.clone(), dist=dist, angle=angle, roi=_in_roi(prev_cy, prev_cx, roi_mask),
+        kind=kind, next=nxt.to(torch.int32), src=src.to(torch.int32),
+        last_active=last.to(torch.int32))
+
+
+def _record_words(K: int) -> int:
+    """Words of one frame's record in T1a's output (csrc/track_scan.cu:
+    RecordLayout): an 8-word header (kind, next, src, prev_fn, the previous
+    and the frame's validity as 64-bit masks), prev_cy, prev_cx, K ROI
+    bytes, the distance terms and the angles, padded to 4 words."""
+    return (8 + 2 * K + (K + 3) // 4 + 2 * K * K + 3) // 4 * 4
+
+
+def _unpack_records(records: torch.Tensor, T: int, K: int) -> Prologue:
+    """T1a's records as a Prologue (views where the layout allows)."""
+    rec = records[: T * _record_words(K)].view(T, -1)
+    flt = rec.view(torch.float32)
+    k = torch.arange(K, device=rec.device)
+
+    def mask(at: int):
+        words = rec[:, at:at + 2][:, k // 32]
+        return ((words >> (k % 32)) & 1).bool()
+
+    roi0, d0 = 8 + 2 * K, 8 + 2 * K + (K + 3) // 4
+    return Prologue(
+        prev_cy=flt[:, 8:8 + K], prev_cx=flt[:, 8 + K:8 + 2 * K], prev_valid=mask(4),
+        prev_fn=rec[:, 3], valid=mask(6),
+        dist=flt[:, d0:d0 + K * K].reshape(T, K, K),
+        angle=flt[:, d0 + K * K:d0 + 2 * K * K].reshape(T, K, K),
+        roi=rec[:, roi0:d0].contiguous().view(torch.uint8)[:, :K].bool(),
+        kind=rec[:, 0], next=rec[:, 1], src=rec[:, 2],
+        last_active=records[T * _record_words(K)] if T else records.new_full((), -1))
+
+
+# What T1 counts into its optional stats output (int64, one entry each):
+# frames by kind, JV rows and Dijkstra steps, events; then, in a build
+# with -DT1_SPLIT (tools/time_kernels.py --t1-split), T1b's SM cycles per
+# phase and in all (0 otherwise).
+STAT_NAMES = (
+    "work frames", "enumeration frames", "JV frames", "JV rows", "Dijkstra steps",
+    "empty frames", "inactive frames", "events",
+    "cycles top", "cycles match", "cycles enumeration", "cycles JV steps", "cycles JV rows",
+    "cycles events", "cycles link", "cycles total",
+)
 
 
 def track_window(
@@ -346,9 +492,43 @@ def track_window(
 ) -> Tuple[TrackState, EventBuffer]:
     """Scan the tracker over T frames of compacted (T, K) segment tables:
     (new state, event buffer of 4 * T events).  CPU tensors take
-    `track_window_reference`; CUDA tensors launch csrc/track_scan.cu."""
+    `track_window_reference`; CUDA tensors launch csrc/track_scan.cu's T1a
+    and T1b (counted as one launch of track_window; track_window.kernels
+    counts the kernels the call launched)."""
     if cys.device.type == "cpu":
         return track_window_reference(state, roi_mask, cys, cxs, valids, fns, cfg, active)
+    return scan_cuda(state, roi_mask, cys, cxs, valids, fns, cfg, active)
+
+
+def track_prologue(state: TrackState, roi_mask, cys, cxs, valids, fns,
+                   cfg: PipelineConfig = DEFAULT_CONFIG,
+                   active: Optional[torch.Tensor] = None) -> Prologue:
+    """T1a alone (CUDA tensors) or `track_prologue_reference` (CPU)."""
+    if cys.device.type == "cpu":
+        return track_prologue_reference(state, roi_mask, cys, cxs, valids, fns, cfg, active)
+    records, _, _, _ = _launch(state, roi_mask, cys, cxs, valids, fns, cfg, active,
+                               prologue_only=True)
+    return _unpack_records(records, *cys.shape)
+
+
+def scan_cuda(state, roi_mask, cys, cxs, valids, fns, cfg=DEFAULT_CONFIG, active=None,
+              stats: Optional[torch.Tensor] = None, defines=()):
+    """`track_window` on CUDA tensors; `stats`, a zeroed (len(STAT_NAMES),)
+    int64 tensor on the card, receives T1's counts (STAT_NAMES), and
+    `defines` select a build of the kernels (tools/time_kernels.py's split
+    build: ("T1_SPLIT",))."""
+    _, out, events, n_kernels = _launch(state, roi_mask, cys, cxs, valids, fns, cfg, active,
+                                        stats=stats, defines=defines)
+    track_window.launches += 1
+    track_window.kernels += n_kernels
+    return out, events
+
+
+def _launch(state, roi_mask, cys, cxs, valids, fns, cfg, active, prologue_only=False,
+            stats=None, defines=()):
+    """Check the operands and launch T1a and (unless prologue_only) T1b:
+    (T1a's records, the new state, the events, the number of kernels the
+    launcher reports it launched)."""
     dev = cys.device
     T, K = cys.shape
     if K > MAX_KERNEL_TRACKS:
@@ -364,6 +544,7 @@ def track_window(
           for f, dt in zip(dataclasses.fields(state), (
               torch.float32, torch.float32, torch.bool, torch.int32, torch.float32,
               torch.float32, torch.int32))),
+        *((("stats", stats, torch.int64, (len(STAT_NAMES),)),) if stats is not None else ()),
     )
     for what, t, dtype, shape in operands:
         if t.device != dev or t.dtype != dtype or not t.is_contiguous() or (
@@ -379,9 +560,17 @@ def track_window(
     else:
         n_enum, pats = 0, torch.zeros(1, dtype=torch.int32, device=dev)
     c = _consts(cfg)
-    out = empty_state(K, dev)
-    events = empty_events(4 * T, dev)
+    records = torch.empty(T * _record_words(K) + 4, dtype=torch.int32, device=dev)
+    out = events = None
+    if not prologue_only:
+        out = empty_state(K, dev)
+        events = empty_events(4 * T, dev)
     Hm, Wm = roi_mask.shape
+    launched = ctypes.c_int(0)
+
+    def ptrs(x):
+        return (getattr(x, f.name).data_ptr() for f in dataclasses.fields(x)) if x else (0,) * 7
+
     build.launch(
         "track_scan", "swt_track_scan", dev,
         *(getattr(state, f.name).data_ptr() for f in dataclasses.fields(state)),
@@ -390,15 +579,15 @@ def track_window(
         active.data_ptr(), T, K,
         pats.data_ptr(), pats.shape[0] if n_enum else 0, n_enum,
         c.dist_knee, c.angle_knee, c.clamp, c.deg, c.nonmatch, c.filler, c.w_offset, _BIG,
-        *(getattr(out, f.name).data_ptr() for f in dataclasses.fields(out)),
-        *(getattr(events, f.name).data_ptr() for f in dataclasses.fields(events)),
-        4 * T,
+        records.data_ptr(), int(prologue_only), *ptrs(out), *ptrs(events),
+        4 * T, 0 if stats is None else stats.data_ptr(), ctypes.addressof(launched),
+        defines=defines,
     )
-    track_window.launches += 1
-    return out, events
+    return records, out, events, launched.value
 
 
 track_window.launches = 0
+track_window.kernels = 0
 
 
 def compact_tables(table, K: int, with_bbox: bool = False):

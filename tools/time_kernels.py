@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's kernels (K1-K6, T1) of trees of the port on the same
+r"""Time the port's kernels (K1-K6, T1) of trees of the port on the same
 inputs, on one GPU.
 
     python3 tools/time_kernels.py [--trees DIR ...] [--reps 20] [--kernels NAME ...]
+                                  [--t1-split]
 
 Each DIR is the root of a checkout of this repository (default: this one),
 for example an earlier commit unpacked with `git archive` into a
@@ -22,9 +23,11 @@ K2's swept labels, K3 the labels after K5's 24-sweep budget, K4 the
 converged labels.  T1 (the device tracker's scan) runs on the batch's
 compacted region tables (336 frames, K = 24), "T1 dense" and "T1 sparse"
 on chip_smoke.fuzz_tables streams of as many frames with 0-30 and 0-4
-segments a frame; trees without the device tracker skip them.  Every
-tree's outputs are checked against this tree's plain versions: bit-equal,
-except K6's G, within 1e-4 of max|G|.
+segments a frame, and "T1 empty" on chip_smoke.empty_stretch_tables (busy
+runs between runs of 50-70 empty frames, an empty run at the edge); trees
+without the device tracker skip them.  Every tree's outputs are checked
+against this tree's plain versions: bit-equal, except K6's G, within 1e-4
+of max|G|.
 
 Each kernel of each tree is timed in two ways, in turns over the trees
 (A, B, B, A for two): queued behind a spin (chip_smoke.time_ms, device
@@ -35,6 +38,21 @@ only), and "K6 grid x2" the kernel with twice the blocks per SM in its
 grid.  Prints the card's name and power limit, a line per kernel, tree and
 way, and last one JSON object of all the times.  Imports the port only (no
 JAX).  Needs a CUDA device.
+
+--t1-split builds each tree's T1 a second time with -DT1_SPLIT, which
+compiles in clock64() stamps at its phase boundaries (trees whose T1 has
+none are skipped), runs it on each T1 stream, and prints the kernel's
+counts (frames by kind, JV rows, Dijkstra steps, events), its SM cycles
+per phase, and the time of T1a alone (queued, this build).  Only this
+build has the stamps.  The one-block T1 that the two-kernel design
+replaced (commit 4e931d5 and before) gets the same stamps, and a split
+build, from tools/t1_split_one_block.patch; its default build is
+unchanged, so one patched tree gives both its times and its split:
+
+    git archive 4e931d5 | tar -x -C DIR
+    patch -p1 -d DIR < tools/t1_split_one_block.patch
+    python3 tools/time_kernels.py --trees DIR . --t1-split \
+        --kernels T1 "T1 dense" "T1 sparse" "T1 empty"
 """
 
 from __future__ import annotations
@@ -70,7 +88,7 @@ from swiftwatcher_tpu_torch.ops.rank_compact import (  # noqa: E402
 from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched  # noqa: E402
 
 KERNELS = ("K1", "K1 zeros", "K6", "K5", "K4", "K3", "K2", "K2 dense", "T1", "T1 dense",
-           "T1 sparse")
+           "T1 sparse", "T1 empty")
 PARTS = ("K6 stream", "K6 grid x2")
 
 
@@ -141,6 +159,7 @@ def t1_inputs(dev, cfg, bench, gray):
     tables = {"T1": localize_windows_gray(gray, cfg)[0]}
     for name, most in (("T1 dense", 30), ("T1 sparse", 4)):
         tables[name] = chip_smoke.fuzz_tables(np, torch, rng, N, *gray.shape[2:], most, dev)
+    tables["T1 empty"] = chip_smoke.empty_stretch_tables(np, torch, rng, N, *gray.shape[2:], dev)
     args = {}
     for name, table in tables.items():
         cy, cx, valid, _ = compact_tables(table, K)
@@ -148,6 +167,38 @@ def t1_inputs(dev, cfg, bench, gray):
                       cx.reshape(N, K).contiguous(), valid.reshape(N, K).contiguous(),
                       fns, cfg, act)
     return args
+
+
+def t1_split(port, t1, plain, card, result, reps: int = 3) -> bool:
+    """The -DT1_SPLIT build of `port`'s T1 on each T1 stream: its counts
+    and cycles per phase (mean of `reps` runs), printed and kept in
+    result["t1_split"]; False if its outputs differ from the plain
+    version's."""
+    td = importlib.import_module(f"{port.__name__}.pipeline.tracking_device")
+    if not hasattr(td, "STAT_NAMES"):
+        print(f"t1-split: {port.__file__}: its T1 has no stamps", flush=True)
+        return True
+    for name, a in t1.items():
+        runs = []
+        for _ in range(reps):
+            stats = torch.zeros(len(td.STAT_NAMES), dtype=torch.int64, device=a[2].device)
+            out = t1_outputs(td.scan_cuda(*a, stats=stats, defines=("T1_SPLIT",)))
+            if not agrees(name, out, plain[name]):
+                print(f"time_kernels: the split build of {name} disagrees with the plain "
+                      f"version", file=sys.stderr)
+                return False
+            runs.append(stats.cpu().numpy())
+        mean = np.mean(runs, axis=0)
+        split = {k: float(v) for k, v in zip(td.STAT_NAMES, mean)}
+        if hasattr(td, "track_prologue"):
+            split["T1a ms"] = chip_smoke.time_ms(
+                torch, lambda a=a: td._launch(*a, prologue_only=True), 10)
+        result.setdefault("t1_split", {}).setdefault(name, {})[str(Path(
+            port.__file__).parent.parent)] = split
+        print(f"t1-split {name} {Path(port.__file__).parent.parent}: " + ", ".join(
+            f"{k} {v:.4f}" if k.endswith("ms") else f"{k} {v:.0f}" for k, v in split.items())
+            + f" [{card}]", flush=True)
+    return True
 
 
 def inputs(dev, cfg):
@@ -186,6 +237,8 @@ def main() -> int:
                     choices=KERNELS + PARTS,
                     help="kernels to time (default: all; this tree's K6 parts "
                          "are timed whenever K6 is)")
+    ap.add_argument("--t1-split", action="store_true",
+                    help="also run each tree's T1 built with its phase stamps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
@@ -216,8 +269,8 @@ def main() -> int:
         plain.update({k: t1_outputs(track_window_reference(*a)) for k, a in t1.items()})
     plain["K6 grid x2"] = plain["K6"]
     calls = {}
-    for i, root in enumerate(args.trees):
-        port = load_port(root, f"swt_tree{i}")
+    ports = [load_port(root, f"swt_tree{i}") for i, root in enumerate(args.trees)]
+    for root, port in zip(args.trees, ports):
 
         def op(module, name, port=port):
             return getattr(importlib.import_module(f"{port.__name__}.ops.{module}"), name)
@@ -257,6 +310,10 @@ def main() -> int:
 
         here["K6 stream"] = lambda: k6_mod.launch_front("swt_ialm_front_stream", *k6)
         here["K6 grid x2"] = grid_x2
+    result = {"card": card, "frames": int(fg_s.shape[0]), "reps": args.reps, "ms": {}}
+    if args.t1_split:
+        if not all(t1_split(port, t1, plain, card, result) for port in ports):
+            return 1
     for t, fns in calls.items():
         for name, fn in fns.items():
             got = outputs(fn())
@@ -272,7 +329,6 @@ def main() -> int:
     wanted = list(args.kernels)
     if "K6" in wanted:
         wanted += [k for k in PARTS if k not in wanted]
-    result = {"card": card, "frames": int(fg_s.shape[0]), "reps": args.reps, "ms": {}}
     for name in wanted:
         trees = [t for t in calls if name in calls[t]]
         for way, timer in (("queued", chip_smoke.time_ms), ("back_to_back", back_to_back_ms)):
