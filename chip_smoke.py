@@ -105,9 +105,10 @@ path (`run_video`) end to end:
      --parallel-videos 2 on two clips, also with --profile (a trace from
      the run that held the profiler, device times from both), CSVs
      byte-equal to two sequential runs; stabilize_window (J = 3) on one bench batch shaken by
-     planted integer shifts, card == CPU bit for bit; --accuracy-pack on a
-     jittered small scene, card == CPU; opening an .h5 without h5py raises
-     an ImportError that names h5py and the alternatives;
+     planted integer shifts, card == CPU bit for bit; --accuracy-pack on the
+     accuracy corpus's jitter2 scene (make_hard_video), card == CPU;
+     opening an .h5 without h5py raises an ImportError that names h5py and
+     the alternatives;
  15. --mesh (parallel/mesh.py): a (1, 1) mesh on NCCL, and (1, 2) and (2, 1)
      meshes on gloo with both ranks on the one card: the first batch's
      sharded tables equal the unsharded localize_windows_gray's (IALM
@@ -119,7 +120,24 @@ path (`run_video`) end to end:
      card (losses within 1e-5, head within 1e-6); the CLI with --mesh 1x1
      gives the CSVs of the CLI without it, and --mesh 2x1 on one card is
      refused with the JAX CLI's message; finetune on the card against the
-     CPU (head within 1e-6).
+     CPU (head within 1e-6);
+ 16. the last modules: the wire codec (io/wirecodec.py) on the close-pass
+     batch (336 x 216 x 432) as delta4 and delta6 with each predictor
+     forced, decoded on the card bit-equal to the raw batch; an i.i.d.-noise
+     batch over both escape caps shipped raw by the prefetcher; auto's link
+     probe (its rate and its decision: raw on the card, and phase 6 shipped
+     raw bytes); the CLI over phase 6's 1008 frames raw, with delta6 and
+     delta4 (escape cap raised so the close-pass batches fit) and with
+     delta6 at the default cap (every batch overflows and ships raw):
+     phase 6's events and six CSVs byte-equal to the raw run's; decode ms
+     a batch on the card, encode ms a batch on the host (the C twin and
+     numpy) and wire bytes a frame; ialm_rpca on one 216 x 432 x 21 window
+     in f64 on the card, the device solver against the host_svd oracle
+     (equal iterations, A and E within 1e-6); localize_window_debug's
+     opened plane bit-equal to K1 on its RPCA plane; and three scenes of
+     the accuracy corpus (crowded, jitter2, flyby_trap) through
+     tools/torch_accuracy_corpus.py, card == CPU in totals and event
+     frames.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -1160,7 +1178,9 @@ def run() -> None:
             (14, phase14, (np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11,
                            secs11)),
             (15, phase15, (np, torch, dev, cfg, card, bench, small, gray_dev, n_frames, r9,
-                           r11))):
+                           r11)),
+            (16, phase16, (np, torch, dev, cfg, card, bench, gray, gray_dev, small, wrappers,
+                           n_frames, r6, r11))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"phase {n} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1724,17 +1744,6 @@ def phase13(np, torch, dev, cfg, card, bench, n_frames, wrappers, r11, secs11) -
               f"{len(resumed.events)} events, equal to the full run's", flush=True)
 
 
-def jittered(np, frames, rng, J: int):
-    """Each frame moved by a random integer camera offset within +-J, its
-    edges repeated: a shaking camera."""
-    out = np.empty_like(frames)
-    for t, f in enumerate(frames):
-        dy, dx = (int(v) for v in rng.integers(-J, J + 1, 2))
-        pad = np.pad(f, ((J, J), (J, J), (0, 0)), mode="edge")
-        out[t] = pad[J + dy : J + dy + f.shape[0], J + dx : J + dx + f.shape[1]]
-    return out
-
-
 def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, secs11) -> None:
     """The flags: --profile, --parallel-videos 2, stabilize_window card ==
     CPU, --accuracy-pack card == CPU, and the .h5 error without h5py."""
@@ -1742,7 +1751,7 @@ def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, se
     from swiftwatcher_tpu_torch.__main__ import main as cli_main
     from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
     from swiftwatcher_tpu_torch.io.source import LoopingArraySource, open_source
-    from swiftwatcher_tpu_torch.io.synthetic import make_video
+    from swiftwatcher_tpu_torch.io.synthetic import make_hard_video, make_video
     from swiftwatcher_tpu_torch.ops.color import bgr_to_gray_host
     from swiftwatcher_tpu_torch.ops.stabilize import stabilize_window
     from swiftwatcher_tpu_torch.pipeline.runner import run_video
@@ -1859,12 +1868,14 @@ def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, se
           f"(frames and shifts); {recovered} of {B * T} planted shifts recovered exactly; "
           f"{stab_ms:.3f} ms on the card [{card}]", flush=True)
 
-    # 14.4 --accuracy-pack on the card == on the CPU, on a jittered small scene
-    shake = jittered(np, small.frames, np.random.default_rng(15), 2)
+    # 14.4 --accuracy-pack on the card == on the CPU, on the accuracy
+    # corpus's jitter2 scene (camera shake of +-2 px)
+    corpus = corpus_tool()
+    shake = make_hard_video(**corpus.BASE, **corpus.SCENES["jitter2"])
     with tempfile.TemporaryDirectory() as tmp:
         got = {}
         for where in ("cuda", "cpu"):
-            clip = save_clip(tmp, f"{where}/clip.npy", shake, small.corners)
+            clip = save_clip(tmp, f"{where}/clip.npy", shake.frames, shake.corners)
             with contextlib.redirect_stdout(io.StringIO()) as text:
                 rc = cli_main(["--filepaths", str(clip), "--accuracy-pack", "--device", where])
             check(rc == 0, f"CLI --accuracy-pack on {where} exited {rc}")
@@ -1872,7 +1883,7 @@ def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, se
         check(len(got["cpu"][0]) == 6 and got["cuda"][0] == got["cpu"][0],
               "--accuracy-pack: CSVs differ between card and CPU")
         line = [ln for ln in got["cuda"][1].splitlines() if "predicted" in ln]
-        print(f"phase 14 CLI --accuracy-pack on a jittered small scene (+-2 px): six CSVs "
+        print(f"phase 14 CLI --accuracy-pack on the corpus's jitter2 scene (+-2 px): six CSVs "
               f"byte-equal card vs CPU; {line[-1].strip() if line else 'no events'}", flush=True)
 
     # 14.5 an .h5 without h5py
@@ -2043,6 +2054,249 @@ def phase15(np, torch, dev, cfg, card, bench, small, gray_dev, n_frames, r9, r11
     print(f"phase 15 finetune (3 steps of 4 images at 224 x 224) card vs CPU: head max |diff| "
           f"{errs} (tolerance 1e-6), {secs:.2f} s on the card [{card}]", flush=True)
     check(max(errs.values()) <= 1e-6, "finetune on the card differs from the CPU")
+
+
+# IALM in f64, device solver vs the host_svd oracle: the CPU test's bound
+# (tests/test_torch_window_single.py IALM_F64_ATOL)
+IALM_F64_ATOL = 1e-6
+# An escape cap the close-pass batch fits: its four 64 x 64 block frames,
+# repeated five times a batch, overflow the default cap of 65536 (phase 16
+# prints the escape counts)
+WIDE_ESCAPE_CAP = 262144
+
+
+def corpus_tool():
+    """tools/torch_accuracy_corpus.py of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_accuracy_corpus", Path(__file__).resolve().parent / "tools"
+        / "torch_accuracy_corpus.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod          # its dataclass looks its module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase16(np, torch, dev, cfg, card, bench, gray, gray_dev, small, wrappers, n_frames, r6,
+            r11) -> None:
+    """The last modules: the wire codec (decodes on the card bit-equal at
+    the main path's shape, the overflow fallback, the CLI under each
+    codec, auto's probe, decode and encode times, wire bytes), ialm_rpca's
+    device solver against the host_svd oracle, localize_window_debug
+    against K1, and three corpus scenes card == CPU."""
+    import swiftwatcher_tpu_torch.__main__ as main_mod
+    from swiftwatcher_tpu_torch import ui
+    from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
+    from swiftwatcher_tpu_torch.io import native, wirecodec
+    from swiftwatcher_tpu_torch.io.prefetch import WindowPrefetcher
+    from swiftwatcher_tpu_torch.io.source import ArraySource, LoopingArraySource
+    from swiftwatcher_tpu_torch.ops.color import bgr_to_gray_host
+    from swiftwatcher_tpu_torch.ops.fused_motion import fused_motion_filter
+    from swiftwatcher_tpu_torch.ops.rpca import ialm_rpca
+    from swiftwatcher_tpu_torch.pipeline.window import localize_window, localize_window_debug
+
+    B, T, H, W = gray_dev.shape
+    raw = gray_dev.reshape(B * T, H, W)
+    frame_bytes = H * W
+    cap4 = min(cfg.wire_escape_cap, max(1024, (gray.size - frame_bytes) // 16))
+
+    # 16a: each format at the main path's shape, decoded on the card
+    engaged = "C twin (csrc/wire_encode.cpp)" if native.has_symbol("swt_encode_delta6") \
+        else "numpy (no g++ build here)"
+    fmts = {"delta4": lambda: wirecodec.encode_delta4(gray, WIDE_ESCAPE_CAP),
+            "delta6 mode 0": lambda: wirecodec.encode_delta6(gray, WIDE_ESCAPE_CAP, 0),
+            "delta6 mode 1": lambda: wirecodec.encode_delta6(gray, WIDE_ESCAPE_CAP, 1)}
+    packets, uploaded = {}, {}
+    for name, enc in fmts.items():
+        pkt = enc()
+        check(pkt is not None, f"{name}: the close-pass batch overflowed {WIDE_ESCAPE_CAP}")
+        put = wirecodec.device_put_packet6 if name != "delta4" else wirecodec.device_put_packet
+        packets[name], uploaded[name] = pkt, put(pkt, dev)
+        out = wirecodec.decode_packet(uploaded[name])
+        check(out.dtype == torch.uint8 and torch.equal(out, raw),
+              f"{name}: the decode on the card differs from the raw batch")
+    auto_pkt = wirecodec.encode_delta6(gray, WIDE_ESCAPE_CAP)
+    escapes = {name: int(np.count_nonzero(p.esc_idx < (gray.size - frame_bytes
+                                                       if name == "delta4" else gray.size)))
+               for name, p in packets.items()}
+    print(f"phase 16 wire codec at {tuple(raw.shape)} (the close-pass batch): delta4, delta6 "
+          f"mode 0 and mode 1 decoded on the card bit-equal to the raw batch (escape cap "
+          f"{WIDE_ESCAPE_CAP}; sparse escapes {escapes}; at the default "
+          f"{cfg.wire_escape_cap} the batch overflows: delta4 "
+          f"{wirecodec.encode_delta4(gray, cap4) is None}, delta6 "
+          f"{wirecodec.encode_delta6(gray, cfg.wire_escape_cap) is None}); delta6 picks mode "
+          f"{auto_pkt.mode}; encoder {engaged}", flush=True)
+
+    # 16b: i.i.d. noise overflows both default caps and ships raw
+    noise = np.random.default_rng(16).integers(0, 256, (B * T, H, W, 3), np.uint8)
+    noise_gray = bgr_to_gray_host(noise)
+    shipped = {}
+    for codec in ("delta4", "delta6"):
+        pf = WindowPrefetcher(ArraySource(noise, fps=30.0), ((0, 0), (W, H)), dev,
+                              dataclasses.replace(cfg, wire_codec=codec))
+        batch = pf.next()
+        pf.close()
+        shipped[codec] = (type(batch[0]).__name__, dict(pf.batches_by_format))
+        check(isinstance(batch[0], torch.Tensor) and pf.batches_by_format["raw"] == 1
+              and pf.bytes_uploaded == B * T * H * W,
+              f"{codec}: the noise batch did not ship raw: {shipped[codec]}")
+        got = batch[0].reshape(B * T, H, W).cpu().numpy()
+        check(np.array_equal(got, noise_gray), f"{codec}: raw noise batch differs")
+    check(wirecodec.encode_delta4(noise_gray, cap4) is None
+          and wirecodec.encode_delta6(noise_gray, cfg.wire_escape_cap) is None,
+          "the noise batch fits an escape cap")
+    print(f"phase 16 an i.i.d.-noise batch overflows both caps (delta4 {cap4}, delta6 "
+          f"{cfg.wire_escape_cap}) and ships raw: {shipped}", flush=True)
+
+    # 16d: auto's link probe and its decision
+    pf = WindowPrefetcher(ArraySource(small.frames, fps=small.fps), ((0, 0), (64, 64)), dev, cfg)
+    pf.close()
+    rate = pf.link_bytes_per_s
+    print(f"phase 16 wire_codec=auto: best of 3 round trips of 2 MiB to the card and back "
+          f"{rate / 1e6:.1f} MB/s against wire_auto_mbps {cfg.wire_auto_mbps}: "
+          f"{pf.codec or 'raw'} [{card}]", flush=True)
+    check(pf.codec is None, "auto engaged the codec on the card's link")
+    n_batches = n_frames // (B * T)
+    check(r6.metrics.wire_bytes == n_batches * B * T * frame_bytes,
+          f"the default run shipped {r6.metrics.wire_bytes} bytes, not raw")
+
+    # 16c: the CLI on the close-pass clip (1008 frames, phase 6's source)
+    # under each codec, against its raw run
+    real_open, real_run = main_mod.open_source, main_mod.run_video
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = Path(tmp) / "close_pass.npy"
+        ui.save_corners_to_file(clip, bench.corners)
+        results = {}
+        runs = (("raw", []),
+                ("delta6", ["--set", "wire_codec=delta6", "--set",
+                            f"wire_escape_cap={WIDE_ESCAPE_CAP}"]),
+                ("delta4", ["--set", "wire_codec=delta4", "--set",
+                            f"wire_escape_cap={WIDE_ESCAPE_CAP}"]),
+                ("delta6, default cap", ["--set", "wire_codec=delta6"]))
+        try:
+            main_mod.open_source = lambda path, start=0, end=0: LoopingArraySource(
+                bench.frames, total=n_frames, fps=bench.fps)
+            for name, flags in runs:
+                rec = []
+
+                def recorded(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r = real_run(*a, **k)
+                    torch.cuda.synchronize()
+                    rec.append((r, time.perf_counter() - t0))
+                    return r
+
+                main_mod.run_video = recorded
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = main_mod.main(["--filepaths", str(clip), *flags])
+                check(rc == 0, f"CLI with {name} exited {rc}")
+                out = clip.parent / clip.stem
+                results[name] = (rec[0][0], rec[0][1],
+                                 {p.name: p.read_bytes() for p in sorted(out.glob("*.csv"))})
+                for p in out.glob("*.csv"):
+                    p.unlink()
+        finally:
+            main_mod.open_source, main_mod.run_video = real_open, real_run
+    base, _, base_csvs = results["raw"]
+    check(len(base_csvs) == 6 and [e.frame_number for e in base.events]
+          == [e.frame_number for e in r11.events] and len(base.events) == len(r6.events),
+          "the raw CLI run differs from phase 6/11's events")
+    raw_bytes = n_batches * B * T * frame_bytes
+    for name, (r, secs, csvs) in results.items():
+        check([e.frame_number for e in r.events] == [e.frame_number for e in base.events]
+              and csvs == base_csvs, f"CLI with {name}: events or CSVs differ from the raw run")
+        wb = r.metrics.wire_bytes
+        check((wb == raw_bytes) == (name in ("raw", "delta6, default cap")),
+              f"CLI with {name}: shipped {wb} bytes (raw {raw_bytes})")
+        print(f"phase 16 CLI on the close-pass clip, {name}: {len(r.events)} events, six CSVs "
+              f"byte-equal to the raw run's, {r.frames_processed / secs:.1f} frames/s, "
+              f"wire bytes {wb} ({wb / n_frames:.1f} per frame; raw {frame_bytes}) [{card}]",
+              flush=True)
+
+    # 16e: decode and encode times a batch, wire bytes a frame
+    times = []
+    for name, up in uploaded.items():
+        ms = time_ms(torch, lambda up=up: wirecodec.decode_packet(up), 5, f"decode {name}")
+        times.append(f"{name} decode {ms:.4f} ms")
+    enc_ms = {}
+    for name, enc in fmts.items():
+        t0 = time.perf_counter()
+        for _ in range(3):
+            enc()
+        enc_ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+    real_has = native.has_symbol
+    native.has_symbol = lambda name: False
+    try:
+        np_ms = {}
+        for name, enc in fmts.items():
+            t0 = time.perf_counter()
+            enc()
+            np_ms[name] = (time.perf_counter() - t0) * 1e3
+    finally:
+        native.has_symbol = real_has
+    pinned = torch.from_numpy(gray).pin_memory()
+    upload_ms = time_ms(torch, lambda: pinned.to(dev, non_blocking=True), 5, "raw upload")
+    print(f"phase 16 a batch of {B * T} frames: " + ", ".join(times)
+          + f"; raw upload from pinned memory {upload_ms:.4f} ms [{card}]", flush=True)
+    print("phase 16 encode a batch on the host, " + ", ".join(
+        f"{name}: {engaged.split(' (')[0]} {enc_ms[name]:.1f} ms, numpy {np_ms[name]:.1f} ms"
+        for name in fmts) + f" ({os.cpu_count()} cores)", flush=True)
+    print("phase 16 wire bytes a frame (the close-pass batch, escape cap "
+          f"{WIDE_ESCAPE_CAP}): raw {frame_bytes}, " + ", ".join(
+              f"{name} {p.nbytes / (B * T):.1f}" for name, p in packets.items()), flush=True)
+
+    # 16f: ialm_rpca on one window, device solver vs host_svd, f64 on the card
+    X = gray_dev[0].reshape(T, H * W).transpose(0, 1).to(torch.float64).contiguous()
+    t0 = time.perf_counter()
+    A, E, it = ialm_rpca(X, method="device")
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hA, hE, hit = ialm_rpca(X, method="host_svd")
+    t_host = time.perf_counter() - t0
+    dA, dE = float((A - hA).abs().max()), float((E - hE).abs().max())
+    A32, E32, it32 = ialm_rpca(X.float(), method="device")
+    hA32, hE32, hit32 = ialm_rpca(X.float(), method="host_svd")
+    print(f"phase 16 ialm_rpca on one {H}x{W}x{T} window, f64 on the card: device {it} "
+          f"iterations in {t_dev:.2f} s, host_svd {hit} in {t_host:.2f} s, max |dA| {dA:.3g}, "
+          f"max |dE| {dE:.3g} (bound {IALM_F64_ATOL}); f32: iterations {it32} vs {hit32}, "
+          f"max |dA| {float((A32 - hA32).abs().max()):.3g}, max |dE| "
+          f"{float((E32 - hE32).abs().max()):.3g} [{card}]", flush=True)
+    check(it == hit and dA <= IALM_F64_ATOL and dE <= IALM_F64_ATOL,
+          "ialm_rpca: the device solver differs from the host_svd oracle")
+
+    # 16g: localize_window_debug's opened plane == K1 on its RPCA plane
+    (x1, y1), (x2, y2) = crop_region_from_corners(bench.corners, cfg)
+    crop = torch.from_numpy(bench.frames[-T:, y1:y2, x1:x2]).to(dev)      # frames 57-60 in it
+    table, stages, it_dbg = localize_window_debug(crop, cfg)
+    k1 = fused_motion_filter(stages["RPCA"], cfg)
+    check(torch.equal(k1, stages["opened"]), "localize_window_debug: opened differs from K1")
+    t_single, labels_single, it_single = localize_window(crop, cfg)
+    check(torch.equal(t_single.valid, table.valid) and int(it_single) == int(it_dbg),
+          "localize_window and localize_window_debug disagree")
+    print(f"phase 16 localize_window_debug on the close-pass window ({tuple(crop.shape)}): "
+          f"opened bit-equal to K1 on its RPCA plane, {int(stages['opened'].gt(0).sum())} "
+          f"pixels on, {int(table.valid.sum())} segments, {int(it_dbg)} iterations; "
+          f"localize_window gives the same table", flush=True)
+
+    # 16h: three corpus scenes, card == CPU
+    corpus = corpus_tool()
+    names = ["crowded", "jitter2", "flyby_trap"]
+    got = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        got.append((corpus.score_corpus(names, where, variants=False)[0]["scenes"],
+                    time.perf_counter() - t0))
+    (on_card, card_s), (on_cpu, cpu_s) = got
+    for name in names:
+        a, b = on_card[name], on_cpu[name]
+        keys = ("events_detected", "event_frames", "predicted", "rejected")
+        check(all(a[k] == b[k] for k in keys), f"corpus {name}: card differs from the CPU")
+        check(a["gt_entries"] == b["gt_entries"] > 0, f"corpus {name}: no ground truth")
+    print("phase 16 corpus scenes card == CPU (totals and event frames): " + ", ".join(
+        f"{n} gt {on_card[n]['gt_entries']} events {on_card[n]['event_frames']} detection F1 "
+        f"{on_card[n]['detection']['f1']}" for n in names)
+        + f"; {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU [{card}]", flush=True)
 
 
 def main() -> int:

@@ -7,9 +7,10 @@ sources and flags, so a changed source is rebuilt and an unchanged one is
 reused.  A library built with preprocessor defines (`load_library(name,
 defines)`, which only tools ask for) is a library of its own.  The host
 decoders (`native/<name>.cpp` at the root of the checkout, the libjpeg
-frame pump and the libav reader) are built the same way by g++ into
-`build/native/`; their hash also covers this host's CPU, since they are
-built for it (`-march=native`).  Each library is built once per process,
+frame pump and the libav reader) and the wire codec's encoders
+(`csrc/wire_encode.cpp`, the port's own) are built the same way by g++
+into `build/native/`; their hash also covers this host's CPU, since they
+are built for it (`-march=native`).  Each library is built once per process,
 under a lock, so threads that need it first together do not build it
 twice.  Nothing here runs at import time.
 """
@@ -203,17 +204,24 @@ def _host_cpu() -> bytes:
     return "\n".join(sorted(set(keep))).encode()
 
 
+def native_source(name: str) -> Path:
+    """The host source `name`: the port's `csrc/<name>.cpp` where there is
+    one, else `native/<name>.cpp` at the root of the checkout."""
+    own = CSRC / f"{name}.cpp"
+    return own if own.exists() else NATIVE_SRC / f"{name}.cpp"
+
+
 def native_library_path(name: str, libs: Sequence[str]) -> Path:
-    """Where `native/<name>.cpp` built for this host with `libs` goes."""
+    """Where the host source `name` built for this host with `libs` goes."""
     h = hashlib.sha256()
-    h.update((NATIVE_SRC / f"{name}.cpp").read_bytes())
+    h.update(native_source(name).read_bytes())
     h.update(" ".join([*GXX_FLAGS, *libs]).encode())
     h.update(_host_cpu())
     return NATIVE_BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _load_native(name: str, libs: Sequence[str], bind) -> Optional[ctypes.CDLL]:
-    src = NATIVE_SRC / f"{name}.cpp"
+    src = native_source(name)
     gxx = shutil.which("g++")
     if not src.exists() or gxx is None:
         return None
@@ -232,7 +240,7 @@ def _load_native(name: str, libs: Sequence[str], bind) -> Optional[ctypes.CDLL]:
 
 
 def load_native(name: str, libs: Sequence[str], bind) -> Optional[ctypes.CDLL]:
-    """Build (if needed) and load the host library `native/<name>.cpp`,
+    """Build (if needed) and load the host library of `native_source(name)`,
     linked with `libs`, and call bind(lib) once to set its argtypes; None
     when g++ or a linked library is missing (the caller then takes the cv2
     or numpy path, as the JAX package does)."""

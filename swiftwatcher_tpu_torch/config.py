@@ -161,13 +161,22 @@ class PipelineConfig:
     # backends (VideoFileSource.enable_gray_crop_stream), where libav is
     # built and its probes pass on the file.
     av_gray_decode: bool = True
-    # ----- wire transport ----------------------------------------------------
-    # The JAX package's host->device wire codec.  The port uploads raw u8
-    # crops and has not ported the codec (ROADMAP.md section 1, "Modules
-    # the port still lacks"); these fields have no effect in the port.
+    # ----- wire transport (io/wirecodec.py, io/prefetch.py) -----------------
+    # Host->device transport of the gray window batches: "delta6" ships
+    # bit-lossless predictive base-6 residuals, "delta4" fixed 4-bit
+    # residuals, "auto" times three round trips of 2 MiB to the device and
+    # back and engages delta6 when the best is below wire_auto_mbps (a
+    # card's host link is far faster: raw ships there), anything else
+    # ships raw u8.  Every packet is decoded on the device before
+    # localisation.
     wire_codec: str = "auto"
+    # Capacity of a batch's sparse escape stream (residuals the dense
+    # levels cannot hold: moving birds, exposure steps); a batch that
+    # overflows it ships raw.  delta4 scales it down for small batches.
     wire_escape_cap: int = 65536
     wire_auto_mbps: float = 1000.0
+    # delta6's level-2 and level-3 streams are padded to buckets of these
+    # quanta (smaller for small batches) that only grow, so few shapes ship.
     wire_lvl2_quantum: int = 131072
     wire_esc3_quantum: int = 4096
     # ----- device tracker (pipeline/tracking_device.py) ----------------------

@@ -9,7 +9,8 @@ steps rounded to microseconds, labeled events grouped into predicted
 
 with columns timestamp, framenumber, predicted, rejected (per-second and
 per-minute files drop framenumber via index flooring).  Also provides the
---debug run-directory versioning (io_data.py:193-213).
+--debug run-directory versioning (io_data.py:193-213) and the CSV round
+trips the accuracy corpus scores with (io_data.py:143-190).
 
 The port's copy of swiftwatcher_tpu/io/export.py.  pandas is imported inside
 the functions that need it, so importing the port needs no pandas.
@@ -132,3 +133,43 @@ def generate_test_dir(parent_dir: Path) -> Path:
                 return candidate
             except FileExistsError:  # raced by another process
                 nxt += 1
+
+
+# The reference's research helpers (io_data.py:143-190): DataFrame <-> CSV
+# round trips that turn list-of-pair columns (centroid paths) back from
+# their string form.  The accuracy corpus scores CSVs with them.
+
+
+def dataframe_to_csv(dataframe, output_filepath: Path) -> None:
+    """Write a DataFrame as CSV, making its parent directories
+    (io_data.py:143-149)."""
+    output_filepath = Path(output_filepath)
+    output_filepath.parent.mkdir(parents=True, exist_ok=True)
+    dataframe.to_csv(str(output_filepath))
+
+
+def dataframe_from_csv(filepath):
+    """A results or ground-truth CSV as a DataFrame indexed by
+    (microsecond-rounded timestamp, framenumber), a centroid column parsed
+    back to float pairs (io_data.py:152-164)."""
+    import pandas as pd
+
+    df = pd.read_csv(filepath)
+    df["timestamp"] = pd.to_datetime(df["timestamp"]).dt.round(freq="us")
+    df.set_index(["timestamp", "framenumber"], inplace=True)
+    if "centroid" in df:
+        df = list_to_float(df, "centroid")
+    return df
+
+
+def list_to_float(dataframe, column: str):
+    """Parse a column of "[(y, x), (y, x), ...]" strings into lists of
+    [y, x] float pairs (io_data.py:167-190)."""
+
+    def parse(full_string: str):
+        condensed = full_string.replace(" ", "").replace("[", "").replace("]", "")
+        pairs = condensed.strip("()").split("),(")
+        return [[float(v) for v in p.split(",")] for p in pairs]
+
+    dataframe[column] = dataframe.apply(lambda row: parse(row[column]), axis=1)
+    return dataframe

@@ -1,16 +1,22 @@
-"""ctypes bindings of the native frame pump (native/framepump.cpp).
+"""ctypes bindings of the native frame pump (native/framepump.cpp) and of
+the wire codec's encoders (csrc/wire_encode.cpp).
 
-The port's copy of swiftwatcher_tpu/io/native.py without the wire codec's
-encoders.  The library is built by g++ at first use into build/native/
-(swiftwatcher_tpu_torch/build.py:load_native) and links libjpeg.  Every
-entry point is gated by `is_available()`: without g++ or libjpeg the
-callers take the cv2 or numpy paths, which give the same bytes.
+The port's copy of swiftwatcher_tpu/io/native.py.  The libraries are built
+by g++ at first use into build/native/
+(swiftwatcher_tpu_torch/build.py:load_native).  The frame pump links
+libjpeg, and its entry points are gated by `is_available()`: without g++ or
+libjpeg the callers take the cv2 or numpy paths, which give the same bytes.
+The encoders are a library of their own that needs no libjpeg (a host
+without it still has them), gated by `has_symbol()`; without g++ the
+numpy encoders of io/wirecodec.py give the same bytes.
 
   * gray_crop_batch / gray_crop_frames: BGR -> the shift-15 grayscale crop,
     bit-equal to ops/color.py:bgr_to_gray_host, off the GIL;
   * decode_jpeg_bgr and decode_window_gray: libjpeg decode (of HDF5
     frames), the latter straight to gray crops;
-  * AVIReader: MJPG-in-AVI through the first-party container parser.
+  * AVIReader: MJPG-in-AVI through the first-party container parser;
+  * encode_delta4 / encode_delta6: the wire codec's encoders, threaded,
+    bit-equal to io/wirecodec.py's numpy encoders.
 """
 
 from __future__ import annotations
@@ -55,6 +61,81 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def is_available() -> bool:
     return _load() is not None
+
+
+_I64 = ctypes.c_int64
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+def _bind_wire(lib: ctypes.CDLL) -> None:
+    lib.swt_encode_delta4.argtypes = [_U8P, _I64, _I64, _U8P, _I32P, _U8P, _I64, _INT]
+    lib.swt_encode_delta4.restype = _I64
+    lib.swt_encode_delta6.argtypes = [_U8P, _I64, _I64, _INT, _U8P, _U8P, _U8P, _U8P, _I64,
+                                      ctypes.POINTER(_I64), _I32P, _U8P, _I64,
+                                      ctypes.POINTER(_I64), _INT]
+    lib.swt_encode_delta6.restype = _INT
+
+
+def _load_wire() -> Optional[ctypes.CDLL]:
+    return build.load_native("wire_encode", ("-lpthread",), _bind_wire)
+
+
+def has_symbol(name: str) -> bool:
+    """True when the wire encoders' library is built here and exports
+    `name` (swt_encode_delta4, swt_encode_delta6)."""
+    lib = _load_wire()
+    return lib is not None and getattr(lib, name, None) is not None
+
+
+def encode_delta4(gray2d: np.ndarray, escape_cap: int, n_threads: int = 4):
+    """Threaded C twin of io/wirecodec.py's numpy delta4 encoder, bit-equal.
+
+    gray2d: (N, P) uint8 contiguous frames.  Returns (packed, esc_idx,
+    esc_val), or None on escape overflow."""
+    lib = _load_wire()
+    if lib is None:
+        raise RuntimeError("the wire encoders are not available (g++ missing)")
+    gray2d = np.ascontiguousarray(gray2d, np.uint8)
+    N, P = gray2d.shape
+    m = (N - 1) * P
+    packed = np.empty((m + 1) // 2, np.uint8)
+    esc_idx = np.empty(escape_cap, np.int32)
+    esc_val = np.empty(escape_cap, np.uint8)
+    rc = lib.swt_encode_delta4(_u8ptr(gray2d), N, P, _u8ptr(packed),
+                               esc_idx.ctypes.data_as(_I32P), _u8ptr(esc_val), escape_cap,
+                               n_threads)
+    if rc < 0:
+        return None
+    return packed, esc_idx, esc_val
+
+
+def encode_delta6(gray2d: np.ndarray, escape_cap: int, mode: int = -1, n_threads: int = 4):
+    """Threaded C twin of io/wirecodec.py's numpy delta6 encoder, bit-equal.
+
+    gray2d: (N, P) uint8 contiguous frames.  mode: -1 picks the cheaper
+    predictor, 0 the batch mean, 1 the previous frame.  Returns (mode, bg,
+    lvl1, lvl2, esc_idx, esc_val), lvl2 cut to its exact size (at least one
+    byte), or None on a level-3 overflow."""
+    lib = _load_wire()
+    if lib is None:
+        raise RuntimeError("the wire encoders are not available (g++ missing)")
+    gray2d = np.ascontiguousarray(gray2d, np.uint8)
+    N, P = gray2d.shape
+    mode_out = np.zeros(1, np.uint8)
+    bg = np.empty(P, np.uint8)
+    lvl1 = np.empty((N, (P + 2) // 3), np.uint8)
+    lvl2_cap = (N * P + 1) // 2 + 1      # every pixel escapes
+    lvl2 = np.zeros(lvl2_cap, np.uint8)
+    n1, n3 = _I64(0), _I64(0)
+    esc_idx = np.empty(escape_cap, np.int32)
+    esc_val = np.empty(escape_cap, np.uint8)
+    rc = lib.swt_encode_delta6(_u8ptr(gray2d), N, P, mode, _u8ptr(mode_out), _u8ptr(bg),
+                               _u8ptr(lvl1), _u8ptr(lvl2), lvl2_cap, ctypes.byref(n1),
+                               esc_idx.ctypes.data_as(_I32P), _u8ptr(esc_val), escape_cap,
+                               ctypes.byref(n3), n_threads)
+    if rc != 0:
+        return None
+    return int(mode_out[0]), bg, lvl1, lvl2[: max((n1.value + 1) // 2, 1)].copy(), esc_idx, esc_val
 
 
 def _u8ptr(a: np.ndarray):

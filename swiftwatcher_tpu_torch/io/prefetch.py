@@ -1,11 +1,22 @@
 """Background window prefetching: read, crop, grayscale and upload ahead.
 
-Counterpart of swiftwatcher_tpu/io/prefetch.py without the wire codec.  A
-single worker thread reads up to `batch_windows` windows (the loop
-condition is checked before each window, as the reference does), grays
-each window's chimney crop into a pinned host buffer and starts a
-non-blocking copy to the caller's device.  A partial final batch is padded
-by repeating its last window; its outputs are discarded downstream.
+Counterpart of swiftwatcher_tpu/io/prefetch.py.  A single worker thread
+reads up to `batch_windows` windows (the loop condition is checked before
+each window, as the reference does), grays each window's chimney crop into
+a pinned host buffer and starts a non-blocking copy to the caller's device.
+A partial final batch is padded by repeating its last window; its outputs
+are discarded downstream (and repeated frames keep the wire codec's
+residuals at zero).
+
+The wire codec (io/wirecodec.py, cfg.wire_codec): "delta4" and "delta6"
+encode every batch on the host and ship the packet instead of the raw
+crops; "auto" times three round trips of 2 MiB to the device and back and
+engages delta6 when the best of them is below cfg.wire_auto_mbps (a card's
+host link is far faster, so it ships raw there); anything else ships raw.
+A batch whose escapes overflow their cap ships raw.  delta6's level-2 and
+level-3 streams are padded to buckets that only grow, as in the JAX
+package, so its wire bytes are the JAX package's and the set of shapes
+stays small.
 
 A window's gray crops come from one of three paths, all giving the same
 bytes:
@@ -24,6 +35,7 @@ the frames (the classifier and the segment export crop from them).
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
@@ -34,17 +46,42 @@ from ..config import DEFAULT_CONFIG, PipelineConfig
 from ..ops.color import bgr_to_gray_host
 from . import native
 from .source import FrameSource
+from .wirecodec import device_put_packet, device_put_packet6, encode_delta4, encode_delta6
+
+PROBE_BYTES = 2 * 1024 * 1024
+
+
+def link_rate(device: torch.device, probes: int = 3) -> float:
+    """Bytes/s of the best of `probes` round trips of PROBE_BYTES to `device`
+    and back (both directions' bytes over the elapsed time)."""
+    probe = torch.zeros(PROBE_BYTES, dtype=torch.uint8)
+    best = float("inf")
+    for _ in range(probes):
+        t0 = time.perf_counter()
+        probe.to(device).cpu()
+        best = min(best, time.perf_counter() - t0)
+    return 2 * PROBE_BYTES / max(best, 1e-9)
+
+
+def _round_up(n: int, quantum: int) -> int:
+    return -(-max(n, 1) // quantum) * quantum
 
 
 class WindowPrefetcher:
-    """Yields (gray (B, T, h, w) uint8 on `device`, windows, cursor) batches,
-    where windows is a list of (frames, frame_numbers, stamps) per real
-    window and cursor is (next_frame_number, frames_planned).  frames is
-    the source's list of full-resolution BGR frames when keep_frames is
-    set (the classifier and the segment export crop from them), else None.
-    frame_hw is the source's (H, W) where the caller knows it (the encoded
-    path needs it; it probes one decode otherwise).  `mode` tells which
-    path serves the windows: "encoded", "gray_stream" or "frames"."""
+    """Yields (payload, windows, cursor) batches.  payload is the gray
+    (B, T, h, w) uint8 batch on `device`, or the wire codec's packet of its
+    (B*T, h, w) frames, uploaded (io/wirecodec.py: WirePacket for delta4,
+    WirePacket6 for delta6).  windows is a list of (frames, frame_numbers,
+    stamps) per real window and cursor is (next_frame_number,
+    frames_planned).  frames is the source's list of full-resolution BGR
+    frames when keep_frames is set (the classifier and the segment export
+    crop from them), else None.  frame_hw is the source's (H, W) where the
+    caller knows it (the encoded path needs it; it probes one decode
+    otherwise).  `mode` tells which path serves the windows: "encoded",
+    "gray_stream" or "frames".  `codec` is the wire codec engaged (None for
+    raw), `link_bytes_per_s` the rate `auto` measured (None unless auto),
+    `bytes_uploaded` the bytes shipped and `batches_by_format` the batches
+    shipped as "raw", "delta4" and "delta6"."""
 
     def __init__(
         self,
@@ -75,7 +112,16 @@ class WindowPrefetcher:
               and hasattr(source, "enable_gray_crop_stream")
               and source.enable_gray_crop_stream(crop_region)):
             self.mode = "gray_stream"
+        self.codec = cfg.wire_codec if cfg.wire_codec in ("delta4", "delta6") else None
+        self.link_bytes_per_s = None
+        if cfg.wire_codec == "auto":
+            self.link_bytes_per_s = link_rate(self.device)
+            if self.link_bytes_per_s < cfg.wire_auto_mbps * 1e6:
+                self.codec = "delta6"
+        self._lvl2_bucket = 0
+        self._esc3_bucket = 0
         self.bytes_uploaded = 0
+        self.batches_by_format = {"raw": 0, "delta4": 0, "delta6": 0}
         self._ex = ThreadPoolExecutor(max_workers=1)
         self._futures = [
             self._ex.submit(self._produce) for _ in range(cfg.prefetch_depth)
@@ -173,11 +219,48 @@ class WindowPrefetcher:
             self._exhausted = True
             return None
         view[len(wins):] = view[len(wins) - 1]
-        gray = host.to(self.device, non_blocking=pin)
-        self.bytes_uploaded += host.numel()
+        payload = self._encode(view) if self.codec is not None else None
+        if payload is None:
+            payload = host.to(self.device, non_blocking=pin)
+            self.bytes_uploaded += host.numel()
+            self.batches_by_format["raw"] += 1
         if self._planned >= self.source.total_frames:
             self._exhausted = True
-        return gray, wins, (self.source.next_frame_number, self._planned)
+        return payload, wins, (self.source.next_frame_number, self._planned)
+
+    def _encode(self, gray: np.ndarray):
+        """The uploaded packet of the (B, T, h, w) batch in the engaged
+        format, or None when its escapes overflow (the batch ships raw)."""
+        cfg = self.cfg
+        h, w = gray.shape[2:]
+        frames = gray.reshape(-1, h, w)
+        if self.codec == "delta6":
+            pkt = encode_delta6(frames, cfg.wire_escape_cap)
+            if pkt is not None:
+                # quanta shrink for small batches, so that padding never
+                # swamps a small crop's bytes
+                q2 = min(cfg.wire_lvl2_quantum, max(1024, gray.size // 64))
+                q3 = min(cfg.wire_esc3_quantum, max(128, gray.size // 2048))
+                self._lvl2_bucket = max(self._lvl2_bucket, _round_up(pkt.lvl2.size, q2))
+                if pkt.lvl2.size < self._lvl2_bucket:
+                    pkt.lvl2 = np.pad(pkt.lvl2, (0, self._lvl2_bucket - pkt.lvl2.size))
+                n3 = int(np.count_nonzero(pkt.esc_idx < gray.size))
+                self._esc3_bucket = max(self._esc3_bucket, _round_up(n3, q3))
+                if self._esc3_bucket < pkt.esc_idx.size:
+                    pkt.esc_idx = pkt.esc_idx[: self._esc3_bucket].copy()
+                    pkt.esc_val = pkt.esc_val[: self._esc3_bucket].copy()
+        else:
+            # the escape cap scales with the batch (1/16 of its residuals,
+            # at least 1024) up to cfg.wire_escape_cap
+            cap = min(cfg.wire_escape_cap, max(1024, (gray.size - h * w) // 16))
+            pkt = encode_delta4(frames, cap)
+        if pkt is None:
+            return None
+        put = device_put_packet6 if self.codec == "delta6" else device_put_packet
+        payload = put(pkt, self.device)
+        self.bytes_uploaded += payload.nbytes
+        self.batches_by_format[self.codec] += 1
+        return payload
 
     def next(self):
         """The next ready batch (None when the video is done)."""

@@ -1,7 +1,10 @@
 """RPCA background subtraction by inexact augmented Lagrange multipliers.
 
-Counterpart of swiftwatcher_tpu/ops/rpca.py (`ialm_rpca_batched`, warm
-and cold start, and the helpers on its path).  The SVD of each tall-skinny
+Counterpart of swiftwatcher_tpu/ops/rpca.py: `ialm_rpca_batched` (warm
+and cold start, the pipeline's solver) and the single-window `ialm_rpca`
+with its two SVD methods, "device" (the row-space SVD below) and
+"host_svd" (numpy's LAPACK SVD of a host copy, the validation oracle the
+device solver is held to).  The SVD of each tall-skinny
 iterate (T = 21 frames x P pixels) is taken through its row space: a T x T
 eigendecomposition refined by Newton steps, then a one-sided polish round
 that restores relative accuracy on the small singular values.  The products
@@ -68,6 +71,90 @@ def _refined_eigh(G: torch.Tensor, steps: int = 2):
         V, _ = torch.linalg.qr(V @ (eye + F))
         evals = d
     return evals, V
+
+
+def _row_space_svd(M: torch.Tensor, polish_steps: int = 2):
+    """(S, V) of tall-skinny M (..., P, T) through its row space: the Gram's
+    refined eigenbasis, then one-sided polish steps (rotate the columns,
+    W = M V, and re-diagonalise W^T W) that restore full relative accuracy
+    on the small singular values, which a plain Gram eigh loses in f32."""
+    _, V = _refined_eigh(_t(M) @ M)
+    S2 = None
+    for _ in range(polish_steps):
+        W = M @ V
+        d, V1 = _refined_eigh(_t(W) @ W)
+        V = V @ V1
+        S2 = d
+    return torch.sqrt(torch.clamp(S2, min=0.0)), V
+
+
+def _shrunk_lowrank(M: torch.Tensor, shrink: torch.Tensor) -> torch.Tensor:
+    """A = U diag(S - shrink) V^T for M = U S V^T, as M V diag(f(S)/S) V^T.
+
+    All T components are kept (the svp quirk), so the row-space
+    reconstruction is exact up to rounding.  f(S)/S divides by S floored
+    at eps * max(S) + tiny: a null component then keeps its bounded
+    magnitude |S - shrink| instead of overflowing."""
+    S, V = _row_space_svd(M)
+    fi = torch.finfo(M.dtype)
+    floor = fi.eps * S.amax(dim=-1, keepdim=True) + fi.tiny
+    ratio = (S - shrink[..., None]) / torch.maximum(S, floor)
+    return ((M @ V) * ratio[..., None, :]) @ _t(V)
+
+
+def _host_svd_lowrank(M: torch.Tensor, shrink: torch.Tensor) -> torch.Tensor:
+    """A = U diag(S - shrink) V^T from numpy's LAPACK SVD of a host copy of M.
+
+    The validation oracle, as the JAX package's host callback is: the
+    reference's own LAPACK arithmetic, against which the device solver is
+    held.  It is not a fallback of the pipeline, which never calls it."""
+    import numpy as np
+
+    m = M.detach().cpu().numpy()
+    s = np.asarray(shrink.detach().cpu().numpy(), m.dtype)
+    u, sv, vt = np.linalg.svd(m, full_matrices=False)
+    return torch.from_numpy(((u * (sv - s)) @ vt).astype(m.dtype)).to(M.device)
+
+
+def ialm_rpca(
+    X: torch.Tensor,
+    lmbda: float = 0.01,
+    tol: float = 0.001,
+    max_iter: int = 100,
+    rho: float = 1.5,
+    mu_cap: float = 1e7,
+    method: str = "device",
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Decompose one window X (P pixels x T frames, float) into low-rank A
+    plus sparse E, step for step the reference's IALM
+    (image_filtering.py:256-301, quirks as in the module docstring, norms
+    unfloored as there).  Returns (A, E, iterations).
+
+    method: "device" (the row-space SVD, on X's device) or "host_svd"
+    (numpy's LAPACK SVD each iteration: the oracle).  The loop reads its
+    stopping test back to the host once per iteration."""
+    if method not in ("device", "host_svd"):
+        raise ValueError(f"method must be 'device' or 'host_svd', got {method!r}")
+    lowrank = _host_svd_lowrank if method == "host_svd" else _shrunk_lowrank
+    frob = torch.linalg.norm(X)                     # ||X||_F
+    norm_inf = X.abs().amax() / lmbda
+    Y = X / torch.maximum(frob, norm_inf)
+    mu = 1.25 / frob
+    A = E = torch.zeros_like(X)
+    itr, err = 0, float("inf")
+    while err >= tol and itr < max_iter:
+        inv_mu = 1.0 / mu
+        Eraw = X - A + inv_mu * Y
+        E = torch.clamp(Eraw - lmbda * inv_mu, min=0.0) + torch.clamp(
+            Eraw + lmbda * inv_mu, max=0.0)
+        M = X - E + inv_mu * Y
+        A = lowrank(M, inv_mu)
+        Z = X - A - E
+        Y = Y + mu * Z
+        mu = torch.minimum(mu * rho, mu * mu_cap)
+        err = float(torch.linalg.norm(Z) / frob)
+        itr += 1
+    return A, E, itr
 
 
 def ialm_rpca_batched(
@@ -241,3 +328,12 @@ def rpca_motion_window_batched(
     X = gray_windows.reshape(B, T, P).to(dtype)
     _, E, iters = ialm_rpca_batched(X, **ialm_gates_and_kwargs(cfg, dtype, X.device))
     return motion_from_E(E, P).reshape(B, T, H, W), iters
+
+
+def rpca_motion_window(
+    gray_window: torch.Tensor, cfg: PipelineConfig = DEFAULT_CONFIG
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, H, W) uint8 -> ((T, H, W) uint8 motion, () int32 iters): the
+    batched solver on a batch of one, so both share one arithmetic."""
+    motion, iters = rpca_motion_window_batched(gray_window[None], cfg)
+    return motion[0], iters[0]

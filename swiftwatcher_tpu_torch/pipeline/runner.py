@@ -3,7 +3,10 @@
 Counterpart of swiftwatcher_tpu/pipeline/runner.py:run_video: build the ROI
 mask from the first frame, stream gray window batches to the device, run
 the localisation program per batch, track, classify the events and, when
-asked, write the six CSVs (io/export.py, which needs pandas).
+asked, write the six CSVs (io/export.py, which needs pandas).  Under
+cfg.wire_codec a batch arrives as a wire codec packet (io/prefetch.py,
+io/wirecodec.py), decoded on the device before localisation, and
+metrics.wire_bytes counts the bytes shipped.
 
 Two trackers, as in the JAX package:
   * "host" (the default of run_video): read each batch's region tables
@@ -59,6 +62,7 @@ from ..geometry import crop_array, crop_region_from_corners, roi_crop_region_fro
 from ..io.prefetch import WindowPrefetcher
 from ..io.segments_export import export_frame_segments
 from ..io.source import FrameSource
+from ..io.wirecodec import WirePacket, WirePacket6, decode_packet
 from ..models.classifier import upload
 from ..ops.color import bgr_to_gray_host
 from ..ops.roi_mask import generate_roi_mask
@@ -70,7 +74,7 @@ from .classify_fused import classify_track_fused, pack_fused
 from .events import ClassifiedEvents, classify_events, labels_dataframe
 from .tracking import Event, SegmentTracker
 from .tracking_device import compact_tables, empty_state, track_window
-from .window import localize_windows_gray
+from .window import localize_windows_gray, localize_windows_packed, localize_windows_packed6
 
 
 # The profiler's session is process-wide: a second one started beside it
@@ -504,6 +508,26 @@ def run_video(
         if status_cb is not None:
             status_cb(frames_processed, source.total_frames)
 
+    def localize(payload):
+        """One batch's tables and IALM iterations, from the prefetcher's
+        payload: the raw gray batch or a wire codec packet, which is
+        decoded on this device (before sharding, under a mesh)."""
+        packed = isinstance(payload, (WirePacket, WirePacket6))
+        if packed:
+            N, H, W = payload.shape
+            shape = (N // cfg.window_size, cfg.window_size, H, W)
+        if mesh is None:
+            if isinstance(payload, WirePacket6):
+                return localize_windows_packed6(payload, shape, cfg, needs_frames, stab_ref)
+            if isinstance(payload, WirePacket):
+                return localize_windows_packed(payload, shape, cfg, needs_frames, stab_ref)
+            return localize_windows_gray(payload, cfg, with_bbox=needs_frames, stab_ref=stab_ref)
+        gray = decode_packet(payload).reshape(shape) if packed else payload
+        # stabilisation on the whole batch, before sharding
+        if cfg.stabilize_max_shift > 0:
+            gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
+        return sharded_localize_windows_gray(gray, mesh, cfg, with_bbox=needs_frames)
+
     prefetcher = WindowPrefetcher(source, crop_region, device, cfg,
                                   initial_planned=frames_processed, keep_frames=needs_frames,
                                   frame_hw=None if ff is None else ff.shape[:2])
@@ -517,18 +541,10 @@ def run_video(
             metrics.stage_stop("prefetch_wait")
             nxt = None
             if batch is not None:
-                gray, wins, cursor = batch
+                payload, wins, cursor = batch
                 metrics.stage_start("localize")
                 with annotate("localize_dispatch"), device_stage("localize"):
-                    if mesh is not None:
-                        # stabilisation on the whole batch, before sharding
-                        if cfg.stabilize_max_shift > 0:
-                            gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
-                        table, iters = sharded_localize_windows_gray(
-                            gray, mesh, cfg, with_bbox=needs_frames)
-                    else:
-                        table, iters = localize_windows_gray(gray, cfg, with_bbox=needs_frames,
-                                                             stab_ref=stab_ref)
+                    table, iters = localize(payload)
                 metrics.stage_stop("localize")
                 on_device = None
                 if use_device_tracker:
@@ -553,6 +569,7 @@ def run_video(
     metrics.events = len(events)
     metrics.ialm_iters = ialm_iters
     metrics.read_errors = source.read_errors
+    # the bytes shipped: raw crops, or the codec's packets
     metrics.wire_bytes = prefetcher.bytes_uploaded
     classified = classify_events(events, cfg) if events else None
 

@@ -233,8 +233,8 @@ def test_cli_accuracy_pack_vs_jax_on_jitter2(tmp_path):
     """--accuracy-pack (stabilisation, the wide angle band and the
     displacement gate) on the accuracy corpus's jitter2 scene."""
     sys.path.insert(0, str(ROOT / "tools"))
-    from accuracy_corpus import BASE, SCENES
-    from swiftwatcher_tpu.io.synthetic import make_hard_video
+    from torch_accuracy_corpus import BASE, SCENES
+    from swiftwatcher_tpu_torch.io.synthetic import make_hard_video
 
     hard = make_hard_video(**BASE, **SCENES["jitter2"])
     ours, theirs = _both_clis(tmp_path, hard, ["--accuracy-pack"])

@@ -153,3 +153,84 @@ def test_expand_bbox_agrees(rng):
         y1, x1 = (int(v) for v in rng.integers(-3, 100, 2))
         box = [y1, x1, y1 + int(rng.integers(0, 30)), x1 + int(rng.integers(0, 30))]
         assert classifier.expand_bbox(box, (24, 24)) == jax_classifier.expand_bbox(box, (24, 24))
+
+
+# The accuracy corpus's host copies: the port's make_hard_video, the CSV
+# round trips, and tools/torch_accuracy_corpus.py's scene table, ground
+# truth and scoring, against the JAX package and the JAX-side tools.
+
+def _corpus_tools():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import accuracy_corpus
+    import evaluate
+    import torch_accuracy_corpus
+
+    return accuracy_corpus, evaluate, torch_accuracy_corpus
+
+
+def test_corpus_scene_table_equals_the_jax_tools():
+    theirs, _, ours = _corpus_tools()
+    assert ours.SCENES == theirs.SCENES and list(ours.SCENES) == list(theirs.SCENES)
+    assert ours.BASE == theirs.BASE
+    assert ours.VARIANTS == theirs.VARIANTS
+    assert ours.GT_COLUMNS == _corpus_tools()[1].GT_COLUMNS
+
+
+@pytest.mark.parametrize("kw", [
+    dict(seed=9, n_frames=24, H=120, W=160, n_entering=2, n_vanishing=1, n_crossing=1),
+    dict(seed=10, n_frames=24, H=120, W=160, n_entering=3, simultaneous=True, jitter=2,
+         noise=6, occluder=True, flicker=0.08, motion_blur=0.6),
+])
+def test_make_hard_video_agrees(kw):
+    from swiftwatcher_tpu.io.synthetic import make_hard_video as jax_make_hard_video
+    from swiftwatcher_tpu_torch.io.synthetic import make_hard_video
+
+    ours, theirs = make_hard_video(**kw), jax_make_hard_video(**kw)
+    np.testing.assert_array_equal(ours.frames, theirs.frames)
+    assert dataclasses.asdict(ours).keys() == dataclasses.asdict(theirs).keys()
+    assert (ours.corners, ours.fps, ours.entry_frames, ours.n_distractors) == (
+        theirs.corners, theirs.fps, theirs.entry_frames, theirs.n_distractors)
+
+
+def test_groundtruth_csv_and_dataframes_agree(tmp_path):
+    import pandas as pd
+    from swiftwatcher_tpu_torch.io.synthetic import make_hard_video
+
+    theirs_tool, _, ours_tool = _corpus_tools()
+    video = make_hard_video(seed=50, n_frames=40, n_entering=2)
+    for fps in (None, 29.97):
+        ours_tool.groundtruth_csv(video, tmp_path / "ours.csv", fps=fps)
+        theirs_tool.groundtruth_csv(video, tmp_path / "theirs.csv", fps=fps)
+        assert (tmp_path / "ours.csv").read_bytes() == (tmp_path / "theirs.csv").read_bytes()
+        pd.testing.assert_frame_equal(export.dataframe_from_csv(tmp_path / "ours.csv"),
+                                      jax_export.dataframe_from_csv(tmp_path / "ours.csv"))
+
+
+@pytest.mark.parametrize("granularity", ["exact", "second", "minute", "video"])
+def test_corpus_scoring_equals_evaluate(tmp_path, granularity, rng):
+    import pandas as pd
+
+    _, evaluate, ours = _corpus_tools()
+    fns = np.sort(rng.choice(4000, 40, replace=False))
+    stamps = [export.frame_timestamp(int(f), 30.0).strftime("%H:%M:%S.%f") for f in fns]
+    pred = pd.DataFrame({"timestamp": stamps, "framenumber": fns,
+                         "predicted": rng.integers(0, 2, 40), "rejected": rng.integers(0, 2, 40)})
+    gt = pd.DataFrame({"timestamp": stamps[::2], "framenumber": fns[::2],
+                       "predicted": rng.integers(0, 3, 20)})
+    pred.to_csv(tmp_path / "7-swifts_full_usec.csv", index=False)
+    gt.to_csv(tmp_path / "gt.csv", index=False)
+    for cols in (("predicted", "rejected"), ("predicted",)):
+        a = ours.score_counts(
+            ours._count_series(ours.load_results(tmp_path), cols, granularity),
+            ours._count_series(ours.load_groundtruth(tmp_path / "gt.csv"), ours.GT_COLUMNS,
+                               granularity))
+        b = evaluate.score_counts(
+            evaluate._count_series(evaluate.load_results(tmp_path), cols, granularity),
+            evaluate._count_series(evaluate.load_groundtruth(tmp_path / "gt.csv"),
+                                   evaluate.GT_COLUMNS, granularity))
+        assert (a.tp, a.fp, a.missed) == (b.tp, b.fp, b.missed)
+        assert (a.precision, a.recall, a.f1) == (b.precision, b.recall, b.f1)
+        assert ours._fmt_row("x", a) == evaluate._fmt_row("x", b)

@@ -46,16 +46,23 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+sys.path.insert(0, "tools")
 for m in {modules!r}:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-# the host decoders build (or load) from native/*.cpp
+# the host decoders build (or load) from native/*.cpp, the wire encoders
+# from the port's csrc/wire_encode.cpp
 from swiftwatcher_tpu_torch.io import native, native_av
-native.is_available(), native_av.is_available()
+native.is_available(), native_av.is_available(), native.has_symbol("swt_encode_delta6")
 assert not opened, opened
 print("ok", len({modules!r}))
 """
+
+# Tools of the port that import pandas or cv2 inside their functions (the
+# corpus's scoring and CSVs, the stage PNGs): imported by the probe above,
+# and held to no JAX by test_port_tools_import_no_jax.
+PORT_TOOLS = ["torch_accuracy_corpus", "torch_dump_stages"]
 
 
 @pytest.mark.parametrize("modules", [
@@ -64,18 +71,20 @@ print("ok", len({modules!r}))
     ("io.native", "io.native_av", "io.parallel_decode", "io.source", "io.prefetch",
      "ops.stabilize", "pipeline.multi", "ui"),
     ("parallel.mesh", "models.train"),
-], ids=["classify-export", "readers-flags", "mesh-train"])
+    ("io.wirecodec", "io.synthetic", "io.export", "ops.rpca", "pipeline.window"),
+], ids=["classify-export", "readers-flags", "mesh-train", "codec-window-corpus"])
 def test_new_modules_are_checked(modules):
     """The --classify/--export modules, the readers, stabilisation,
-    multi-video and picker modules, and the mesh and the fine-tune are
-    among those the probe below imports with JAX, PIL, cv2 and h5py
-    blocked: each imports those inside functions, or not at all."""
+    multi-video and picker modules, the mesh and the fine-tune, and the
+    wire codec, the single-window API and the hard-scene corpus are among
+    those the probe below imports with JAX, PIL, cv2 and h5py blocked:
+    each imports those inside functions, or not at all."""
     for m in modules:
         assert f"swiftwatcher_tpu_torch.{m}" in PORT_MODULES
 
 
 def test_port_and_chip_smoke_import_without_blocked_packages():
-    modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ["chip_smoke"]
+    modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ["chip_smoke"] + PORT_TOOLS
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          jax_dir=str(ROOT / "swiftwatcher_tpu"))
     proc = subprocess.run(
@@ -105,6 +114,17 @@ def test_card_scripts_import_the_port_only(script):
     tops = _imported_tops(ROOT / script)
     assert not tops & set(BLOCKED), sorted(tops)
     assert "swiftwatcher_tpu_torch" in tops
+
+
+@pytest.mark.parametrize("tool", PORT_TOOLS)
+def test_port_tools_import_no_jax(tool):
+    """The corpus and stage-dump tools of the port keep their own copies of
+    the JAX-side tools' tables and scoring: no JAX, no JAX package."""
+    path = ROOT / "tools" / f"{tool}.py"
+    tops = _imported_tops(path)
+    assert not tops & {"swiftwatcher_tpu", "jax", "jaxlib", "accuracy_corpus", "evaluate"}, tops
+    assert "swiftwatcher_tpu_torch" in tops
+    assert "swiftwatcher_tpu." not in path.read_text().replace("swiftwatcher_tpu_torch.", "")
 
 
 def test_no_jax_in_port_sources():

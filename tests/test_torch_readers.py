@@ -361,6 +361,56 @@ def test_prefetcher_paths_vs_jax(tmp_path, files, video, kind, backend, mode):
             theirs.close()
 
 
+@pytest.mark.parametrize("codec", ["delta4", "delta6"])
+@pytest.mark.parametrize("kind, backend, mode", PREFETCH_CASES)
+def test_prefetcher_paths_with_codec_vs_jax(tmp_path, files, video, kind, backend, mode, codec):
+    """The wire codec encodes the gray batch whichever path formed it: each
+    packet decodes to the JAX package's raw batch, and the bytes shipped
+    are its prefetcher's under the same codec."""
+    from swiftwatcher_tpu_torch.io.wirecodec import WirePacket, WirePacket6, decode_packet
+
+    _skip_without("av" if mode == "gray_stream" else "native" if kind != "mp4" else "cv2")
+    cfg = dataclasses.replace(DEFAULT_CONFIG, batch_windows=2, prefetch_depth=2,
+                              native_decode=True, wire_codec=codec)
+    region = crop_region_from_corners(video.corners, cfg)
+    hw = video.frames.shape[1:3]
+
+    h5 = _write_h5(tmp_path / "clip.h5", _jpg(video.frames)) if kind == "h5" else None
+
+    def sources():
+        if kind == "h5":
+            return HDF5Source(h5), jax_readers.HDF5Source(h5)
+        return (VideoFileSource(files[kind], backend=backend, decode_workers=WORKERS),
+                jax_readers.VideoFileSource(files[kind], backend=backend,
+                                            decode_workers=WORKERS))
+
+    ours, theirs = sources()
+    raw_ours, raw_theirs = sources()
+    try:
+        pf = WindowPrefetcher(ours, region, CPU, cfg, frame_hw=hw)
+        assert pf.mode == mode and pf.codec == codec
+        got = []
+        while (b := pf.next()) is not None:
+            assert isinstance(b[0], WirePacket6 if codec == "delta6" else WirePacket)
+            got.append(decode_packet(b[0]).numpy())
+        pf.close()
+        jcfg = dataclasses.replace(JAX_CONFIG, batch_windows=2, prefetch_depth=2,
+                                   native_decode=True, wire_codec=codec)
+        jpf = JaxPrefetcher(theirs, region, jcfg, frame_hw=hw)
+        while jpf.next() is not None:
+            pass
+        jpf.close()
+        want = _batches(JaxPrefetcher(raw_theirs, region, dataclasses.replace(
+            jcfg, wire_codec="none"), frame_hw=hw), 3)
+        assert len(got) == len(want) == 2
+        for g, (w, _, _) in zip(got, want):
+            np.testing.assert_array_equal(g, w.reshape(g.shape))
+        assert pf.bytes_uploaded == jpf.wire_bytes and pf.batches_by_format[codec] == 2
+    finally:
+        for src in (ours, raw_ours) + (() if kind == "h5" else (theirs, raw_theirs)):
+            src.close()
+
+
 def _csvs(d):
     return {p.name: p.read_bytes() for p in sorted(d.glob("*.csv"))}
 

@@ -135,7 +135,7 @@ def test_profile_dir_writes_a_trace_and_device_times(tmp_path, impl):
 def test_stabilised_run_vs_jax(impl):
     """stabilize_max_shift=3 (the --accuracy-pack shift) on a jittered
     scene: the JAX package's events and counts, on either tracker."""
-    from swiftwatcher_tpu.io.synthetic import make_hard_video
+    from swiftwatcher_tpu_torch.io.synthetic import make_hard_video
 
     video = make_hard_video(seed=49, n_entering=3, jitter=2, n_frames=63)
     cfg = dataclasses.replace(DEFAULT_CONFIG, stabilize_max_shift=3)

@@ -89,7 +89,7 @@ def test_a_tie_goes_to_the_lowest_candidate(J):
 
 
 def test_localize_with_stabilisation_vs_jax():
-    from swiftwatcher_tpu.io.synthetic import make_hard_video
+    from swiftwatcher_tpu_torch.io.synthetic import make_hard_video
 
     video = make_hard_video(seed=49, n_entering=3, jitter=2, n_frames=21, H=240, W=320)
     from swiftwatcher_tpu_torch.geometry import crop_array, crop_region_from_corners

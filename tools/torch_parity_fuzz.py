@@ -16,7 +16,10 @@ Prints one JSON line per scene and a summary line with the mismatch count;
 exits 1 on any mismatch.
 
     python tools/torch_parity_fuzz.py --scenes 40 [--campaign-seed 20260820]
-        [--device cpu] [--out result.json]
+        [--device cpu] [--out result.json] [--set field=value ...]
+
+--set overrides the port's config for both trackers (e.g. wire_codec=delta6
+ships every batch through the wire codec); the oracle has no such fields.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ sys.path.insert(0, str(ROOT / "tests"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG  # noqa: E402
+from swiftwatcher_tpu_torch.config import config_with_overrides  # noqa: E402
 from swiftwatcher_tpu_torch.io.source import ArraySource  # noqa: E402
 from swiftwatcher_tpu_torch.io.synthetic import make_video  # noqa: E402
 from swiftwatcher_tpu_torch.pipeline.runner import run_video  # noqa: E402
@@ -78,14 +81,15 @@ def _trackers_agree(host, dev) -> bool:
 
 
 def run_campaign(scenes: int, campaign_seed: int, device: torch.device,
-                 out: str | None = None) -> dict:
+                 out: str | None = None, overrides=()) -> dict:
+    cfg = config_with_overrides(list(overrides))
     rng = np.random.default_rng(campaign_seed)
     rows, mismatches, t_start = [], 0, time.perf_counter()
     for i in range(scenes):
         params = scene_params(rng, i)
         video = make_video(**params)
         res = {impl: run_video(ArraySource(video.frames, fps=video.fps), video.corners,
-                               DEFAULT_CONFIG, device, tracker_impl=impl)
+                               cfg, device, tracker_impl=impl)
                for impl in ("host", "device")}
         events_o, labels_o = reference_pipeline(video.frames, video.corners, video.fps)
         oracle = dict(predicted=int(sum(labels_o)),
@@ -100,7 +104,8 @@ def run_campaign(scenes: int, campaign_seed: int, device: torch.device,
         rows.append(row)
         print(json.dumps(row), flush=True)
     summary = dict(scenes=scenes, mismatches=mismatches, campaign_seed=campaign_seed,
-                   device=str(device), elapsed_s=round(time.perf_counter() - t_start, 1))
+                   device=str(device), overrides=list(overrides),
+                   elapsed_s=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"summary": summary}), flush=True)
     if out:
         Path(out).write_text(json.dumps(dict(summary, results=rows), indent=1))
@@ -113,8 +118,10 @@ def main() -> None:
     ap.add_argument("--campaign-seed", type=int, default=20260820)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE")
     args = ap.parse_args()
-    summary = run_campaign(args.scenes, args.campaign_seed, torch.device(args.device), args.out)
+    summary = run_campaign(args.scenes, args.campaign_seed, torch.device(args.device), args.out,
+                           args.set)
     sys.exit(1 if summary["mismatches"] else 0)
 
 
