@@ -137,7 +137,18 @@ path (`run_video`) end to end:
      opened plane bit-equal to K1 on its RPCA plane; and three scenes of
      the accuracy corpus (crowded, jitter2, flyby_trap) through
      tools/torch_accuracy_corpus.py, card == CPU in totals and event
-     frames.
+     frames;
+ 17. bench_torch.py, the port's benchmark, in a process of its own at cut
+     sizes (672 frames a sample, the resident and sharded modes at 1344
+     frames, the container at 4 loops of the bench scene, mp4v here):
+     both of its lines parse, every rate of its stdout line is positive
+     (from-container included), the from-container counts equal an
+     ArraySource run over the decoded frames, it found events, its
+     predicted and rejected equal a host-tracker run_video on the card over
+     the same frames, and K1, K2 and T1 launched in its end-to-end and
+     resident-tracked modes; then tools/torch_soak.py for two passes of two
+     loops at 1080p: the counts scale exactly, with host RSS and device
+     memory after each pass.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -1180,7 +1191,8 @@ def run() -> None:
             (15, phase15, (np, torch, dev, cfg, card, bench, small, gray_dev, n_frames, r9,
                            r11)),
             (16, phase16, (np, torch, dev, cfg, card, bench, gray, gray_dev, small, wrappers,
-                           n_frames, r6, r11))):
+                           n_frames, r6, r11)),
+            (17, phase17, (dev, cfg, card))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"phase {n} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2297,6 +2309,89 @@ def phase16(np, torch, dev, cfg, card, bench, gray, gray_dev, small, wrappers, n
         f"{n} gt {on_card[n]['gt_entries']} events {on_card[n]['event_frames']} detection F1 "
         f"{on_card[n]['detection']['f1']}" for n in names)
         + f"; {card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU [{card}]", flush=True)
+
+
+# bench_torch.py's stdout rates, each of which must be positive on the card
+BENCH_RATES = ("value", "e2e_median", "classified_frames_per_sec", "resident_frames_per_sec",
+               "resident_tracked_frames_per_sec", "resident_tracked_fixed_rpca_frames_per_sec",
+               "sharded_resident_frames_per_sec", "e2e_from_container_fps")
+
+
+def run_script(argv, timeout: float):
+    """A script of this checkout in a process of its own: (stdout lines,
+    stderr lines, seconds); fails on a nonzero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{argv[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout.splitlines(), proc.stderr.splitlines(), secs
+
+
+def phase17(dev, cfg, card) -> None:
+    """bench_torch.py and tools/torch_soak.py on the card, at cut sizes."""
+    from swiftwatcher_tpu_torch.io.source import LoopingArraySource
+    from swiftwatcher_tpu_torch.io.synthetic import make_video
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+
+    frames = 2 * cfg.batch_windows * cfg.window_size
+    out, err, secs = run_script(
+        ["bench_torch.py", "--frames", str(frames), "--warmup-frames", str(frames // 2),
+         "--resident-frames", "1344", "--sharded-frames", "1344", "--container-loops", "4"],
+        timeout=300)
+    details = [json.loads(s)["detail"] for s in err if s.startswith('{"detail"')]
+    check(len(out) == 1 and len(details) == 1,
+          f"bench_torch.py: want one stdout line and one detail line, got {len(out)} and "
+          f"{len(details)}")
+    line, d = json.loads(out[0]), details[0]
+    print(f"phase 17 bench_torch.py in {secs:.1f} s [{card}]: " + ", ".join(
+        f"{k} {line[k]}" for k in BENCH_RATES) + f" frames/s; sharded mesh "
+        f"{line['sharded_mesh']}; from-container {d['from_container_codec']} on "
+        f"{d['from_container_backend']}, samples {d['from_container_samples_fps']}; host decode "
+        f"{d['host_decode_fps_by_backend']}; e2e samples {d['e2e_samples_fps']}, classify "
+        f"samples {d['classified_samples_fps']}", flush=True)
+    for name, r in {**d["resident"], "sharded_resident": d["sharded_resident"]}.items():
+        print(f"phase 17 {name}: {r['fps']} frames/s by the host clock, {r['device_fps']} by "
+              f"CUDA events, {r['batches']} batches of {r['batch_windows']} windows, peak device "
+              f"memory {r['peak_mib']} MiB [{card}]", flush=True)
+    print(f"phase 17 bench_torch.py launches by mode: {d['launches']}", flush=True)
+    check(all(line[k] is not None and line[k] > 0 for k in BENCH_RATES),
+          f"bench_torch.py: a rate is not positive: {[(k, line[k]) for k in BENCH_RATES]}")
+    check(d["from_container_counts_equal"] is True,
+          "bench_torch.py: the from-container counts differ from the decoded frames' run")
+    check(d["card"] == card, f"bench_torch.py names another card: {d['card']}")
+    check(d["events"] > 0, "bench_torch.py found no events")
+    for mode, names in (("e2e", ("fused_motion_filter", "label_rank_fused", "track_window")),
+                        ("resident", ("fused_motion_filter", "label_rank_fused")),
+                        ("resident_tracked", ("fused_motion_filter", "label_rank_fused",
+                                              "track_window"))):
+        check(all(d["launches"][mode].get(k, 0) > 0 for k in names),
+              f"bench_torch.py {mode}: {names} not all launched: {d['launches'][mode]}")
+    video = make_video(seed=0, n_frames=63, H=1080, W=1920, n_entering=2, n_crossing=1,
+                       n_vanishing=1)
+    ref = run_video(LoopingArraySource(video.frames, total=frames, fps=video.fps),
+                    video.corners, cfg, dev)
+    check((d["predicted"], d["rejected"]) == (ref.total_predicted, ref.total_rejected),
+          f"bench_torch.py counts {d['predicted']} / {d['rejected']} differ from the host "
+          f"tracker's {ref.total_predicted} / {ref.total_rejected}")
+    print(f"phase 17 bench_torch.py counts equal the host tracker's on the card: "
+          f"{d['predicted']} predicted / {d['rejected']} rejected, {d['events']} events",
+          flush=True)
+
+    out, _, secs = run_script(["tools/torch_soak.py", "--loops", "2", "--min-passes", "2"],
+                              timeout=180)
+    rows = [json.loads(s) for s in out]
+    summary = rows[-1]
+    for r in rows[:-1]:
+        print(f"phase 17 soak pass {r['pass']}: {r['frames']} frames at {r['fps']} frames/s, "
+              f"counts scale exactly {r['counts_scale_exactly']}, RSS {r['rss_mb_after']} MB, "
+              f"device {r['device_mem']} [{card}]", flush=True)
+    check(summary["passes"] == 2 and summary["counts_scale_exactly"],
+          f"torch_soak.py: {summary['passes']} passes, counts scale exactly "
+          f"{summary['counts_scale_exactly']}")
+    check(all(r["device_mem"] for r in rows[:-1]), "torch_soak.py read no device memory")
+    print(f"phase 17 soak: {summary['passes']} passes in {secs:.1f} s, "
+          f"{summary['events_per_loop']} events a loop", flush=True)
 
 
 def main() -> int:

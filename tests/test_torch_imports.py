@@ -1,7 +1,8 @@
-"""The port and chip_smoke.py import nothing of the JAX package (not even
-a module of it without JAX) and none of JAX, pandas, cv2, PIL, h5py or
-chex; no port module opens a file under swiftwatcher_tpu/ (the native
-decoders build from the repo's native/*.cpp); the scripts that drive the
+"""The port, chip_smoke.py and bench_torch.py import nothing of the JAX
+package (not even a module of it without JAX) and none of JAX, pandas,
+cv2, PIL, h5py or chex; no port module opens a file under
+swiftwatcher_tpu/ (the native decoders build from the repo's
+native/*.cpp); the scripts that drive the
 port on the card import the port alone; and the port's synthetic video is
 the JAX package's, byte for byte."""
 
@@ -59,10 +60,15 @@ assert not opened, opened
 print("ok", len({modules!r}))
 """
 
-# Tools of the port that import pandas or cv2 inside their functions (the
-# corpus's scoring and CSVs, the stage PNGs): imported by the probe above,
-# and held to no JAX by test_port_tools_import_no_jax.
-PORT_TOOLS = ["torch_accuracy_corpus", "torch_dump_stages"]
+# Tools of the port that import pandas, cv2 or h5py inside their functions
+# (the corpus and its scoring, the stage PNGs, the user tools, the soak):
+# imported by the probe above, and held to no JAX by
+# test_port_tools_import_no_jax.
+PORT_TOOLS = ["torch_accuracy_corpus", "torch_dump_stages", "torch_evaluate",
+              "torch_extract_frames", "torch_export_corners", "torch_make_h5_cache",
+              "torch_soak"]
+# Entry points at the repo's root that drive the port.
+ROOT_SCRIPTS = ["chip_smoke", "bench_torch"]
 
 
 @pytest.mark.parametrize("modules", [
@@ -84,7 +90,7 @@ def test_new_modules_are_checked(modules):
 
 
 def test_port_and_chip_smoke_import_without_blocked_packages():
-    modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ["chip_smoke"] + PORT_TOOLS
+    modules = [m.removesuffix(".__init__") for m in PORT_MODULES] + ROOT_SCRIPTS + PORT_TOOLS
     code = _PROBE.format(blocked=BLOCKED, modules=modules,
                          jax_dir=str(ROOT / "swiftwatcher_tpu"))
     proc = subprocess.run(
@@ -107,7 +113,8 @@ def _imported_tops(path):
 
 @pytest.mark.parametrize(
     "script", ["chip_smoke.py", "tools/torch_profile.py", "tools/time_kernels.py",
-               "tools/torch_parity_fuzz.py", "tools/torch_mesh_fuzz.py"]
+               "tools/torch_parity_fuzz.py", "tools/torch_mesh_fuzz.py", "bench_torch.py",
+               "tools/torch_soak.py"]
 )
 def test_card_scripts_import_the_port_only(script):
     """The port keeps its own copies of the host modules it needs."""

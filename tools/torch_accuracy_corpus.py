@@ -5,12 +5,13 @@ Counterpart of tools/accuracy_corpus.py for swiftwatcher_tpu_torch: the
 same hard synthetic scenes (crowding, occlusion, sensor noise, camera
 jitter, near-ROI flybys, motion blur, exposure flicker, H.264 containers)
 with constructed ground truth, run through the port's `run_video` and
-scored by tools/evaluate.py's method (TP = min(predicted, actual) per time
-bin, FP and misses the excess either way), detection-only (predicted +
-rejected events) and detection+classification (predicted only).  It
-imports no JAX and nothing of the JAX package: the scene table, the
-ground-truth writer and the scoring are copies kept here
-(tests/test_torch_host.py holds them to the originals).
+scored by tools/torch_evaluate.py (tools/evaluate.py's method: TP =
+min(predicted, actual) per time bin, FP and misses the excess either
+way), detection-only (predicted + rejected events) and
+detection+classification (predicted only).  It imports no JAX and
+nothing of the JAX package: the scene table and the ground-truth writer
+are copies kept here (tests/test_torch_host.py holds them and the
+scoring to the originals).
 
     python tools/torch_accuracy_corpus.py [--scenes clean crowded ...]
         [--device cpu] [--granularity second] [--json out.json | --json -]
@@ -26,23 +27,32 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import glob
 import json
 import sys
 import tempfile
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG  # noqa: E402
 from swiftwatcher_tpu_torch.device import require_cuda  # noqa: E402
-from swiftwatcher_tpu_torch.io.export import dataframe_from_csv, frame_timestamp  # noqa: E402
+from swiftwatcher_tpu_torch.io.export import frame_timestamp  # noqa: E402
 from swiftwatcher_tpu_torch.io.source import ArraySource, VideoFileSource  # noqa: E402
 from swiftwatcher_tpu_torch.io.synthetic import make_hard_video  # noqa: E402
 from swiftwatcher_tpu_torch.pipeline.runner import run_video  # noqa: E402
+from torch_evaluate import (  # noqa: E402
+    GT_COLUMNS,
+    Score,
+    _count_series,
+    _fmt_row,
+    load_groundtruth,
+    load_results,
+    score_counts,
+)
 
 # tools/accuracy_corpus.py's scene table, geometry and variants.
 BASE = dict(n_frames=84, H=240, W=320, fps=30.0)
@@ -104,92 +114,6 @@ SCENES = {
 VARIANTS["accuracy_pack"]["scenes"] = tuple(SCENES)
 
 NO_WRITER = "no H.264 writer"
-
-
-# tools/evaluate.py's scoring.
-@dataclasses.dataclass
-class Score:
-    tp: int
-    fp: int
-    missed: int
-
-    @property
-    def actual(self) -> int:
-        return self.tp + self.missed
-
-    @property
-    def predicted(self) -> int:
-        return self.tp + self.fp
-
-    @property
-    def precision(self) -> float:
-        return self.tp / self.predicted if self.predicted else 0.0
-
-    @property
-    def recall(self) -> float:
-        return self.tp / self.actual if self.actual else 0.0
-
-    @property
-    def f1(self) -> float:
-        p, r = self.precision, self.recall
-        return 2 * p * r / (p + r) if p + r else 0.0
-
-
-GT_COLUMNS = ("predicted", "count", "events")
-
-
-def _count_series(df, columns, granularity: str):
-    """Per-bin event counts of a timestamp-indexed frame (the sum of the
-    requested columns), at the requested granularity."""
-    present = [c for c in columns if c in df.columns]
-    if not present:
-        raise ValueError(f"none of {columns} present in CSV columns {list(df.columns)}")
-    s = df[present].fillna(0).astype(float).sum(axis=1)
-    stamps = s.index.get_level_values("timestamp")
-    if granularity == "video":
-        key = np.zeros(len(s), np.int64)
-    elif granularity == "minute":
-        key = stamps.floor("min")
-    elif granularity == "second":
-        key = stamps.floor("s")
-    elif granularity == "exact":
-        key = stamps
-    else:
-        raise ValueError(f"unknown granularity {granularity!r}")
-    return s.groupby(key).sum()
-
-
-def score_counts(predicted, actual) -> Score:
-    """Bin-wise TP/FP/missed between two per-bin count series."""
-    import pandas as pd
-
-    joined = pd.concat({"pred": predicted, "act": actual}, axis=1).fillna(0)
-    tp = np.minimum(joined["pred"], joined["act"]).sum()
-    fp = np.maximum(joined["pred"] - joined["act"], 0).sum()
-    missed = np.maximum(joined["act"] - joined["pred"], 0).sum()
-    return Score(tp=int(tp), fp=int(fp), missed=int(missed))
-
-
-def load_results(path: Path):
-    """A results CSV, or the full_usec CSV inside a results directory."""
-    path = Path(path)
-    if path.is_dir():
-        hits = sorted(glob.glob(str(path / "*-swifts_full_usec.csv")))
-        if not hits:
-            raise FileNotFoundError(
-                f"no *-swifts_full_usec.csv under {path} — run the counter "
-                "with an export directory first")
-        path = Path(hits[-1])
-    return dataframe_from_csv(path)
-
-
-def load_groundtruth(path: Path):
-    return dataframe_from_csv(Path(path))
-
-
-def _fmt_row(name, s: Score):
-    return (f"{name:<28} {s.actual:>6} {s.predicted:>9} {s.tp:>6} {s.fp:>6} "
-            f"{s.missed:>6}  {s.precision:>9.4f} {s.recall:>7.4f} {s.f1:>7.4f}")
 
 
 def groundtruth_csv(video, path: Path, fps: float = None) -> None:
