@@ -36,7 +36,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import threading
@@ -47,7 +46,7 @@ import numpy as np
 import torch
 
 from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG
-from swiftwatcher_tpu_torch.device import pin_numerics, require_cuda
+from swiftwatcher_tpu_torch.device import card_line, device_from_arg, pin_numerics
 from swiftwatcher_tpu_torch.geometry import (
     crop_region_from_corners,
     roi_crop_region_from_corners,
@@ -352,27 +351,6 @@ def e2e_from_container_fps(cfg, video, device, loops=10, samples=3, codec="auto"
         and len(res.events) == len(ref.events)
     )
     return max(sample_fps), counts_equal, backend, sample_fps, codec
-
-
-def device_from_arg(name: str) -> torch.device:
-    """The device a --device argument names; "cuda" is the first card, and
-    a CUDA device raises where there is no card (no fallback to the CPU)."""
-    device = torch.device(name)
-    if device.type == "cuda":
-        first = require_cuda()
-        device = first if device.index is None else device
-    return device
-
-
-def card_line(device) -> str | None:
-    """`nvidia-smi --query-gpu=name,power.limit` of the first card (None on
-    the CPU)."""
-    if torch.device(device).type != "cuda":
-        return None
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _arm_watchdog():

@@ -148,7 +148,22 @@ path (`run_video`) end to end:
      the same frames, and K1, K2 and T1 launched in its end-to-end and
      resident-tracked modes; then tools/torch_soak.py for two passes of two
      loops at 1080p: the counts scale exactly, with host RSS and device
-     memory after each pass.
+     memory after each pass;
+ 18. the campaign and measurement tools, in this process:
+     tools/torch_rpca_fixed_counts.py on 4 parity-fuzz scenes (device and
+     host trackers in turn): no mismatch between dynamic stopping and
+     rpca_fixed_iters=15, the dynamic counts of scenes 0 and 1 equal to
+     run_video on the CPU, K1, K2 and T1 launched;
+     tools/torch_bench_rpca.py on 16 windows of the 216 x 432 crop (P =
+     93312), production, warm and cold: ms per IALM trip by the host clock
+     and by CUDA events beside one f32 pass's byte floor, trips within
+     rpca_max_iter, K6 not launched; tools/torch_mesh_scaling.py at sizes 1
+     and 2 ((1, 1) on NCCL, two ranks on gloo sharing the card): every
+     point positive, K1 and K2 launched on rank 0;
+     tools/torch_decode_floor.py on 63 frames: exit 2 with its error line
+     where the port's libav library is not built (the card's machine),
+     else the four modes' rates; tools/torch_accuracy_seed_sweep.py at one
+     seed of crowded and jitter2: both scored, and the AVG block.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -1192,7 +1207,8 @@ def run() -> None:
                            r11)),
             (16, phase16, (np, torch, dev, cfg, card, bench, gray, gray_dev, small, wrappers,
                            n_frames, r6, r11)),
-            (17, phase17, (dev, cfg, card))):
+            (17, phase17, (dev, cfg, card)),
+            (18, phase18, (np, torch, dev, cfg, card))):
         t0 = time.perf_counter()
         phase(*args)
         print(f"phase {n} took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1882,7 +1898,7 @@ def phase14(np, torch, dev, cfg, card, bench, small, wrappers, n_frames, r11, se
 
     # 14.4 --accuracy-pack on the card == on the CPU, on the accuracy
     # corpus's jitter2 scene (camera shake of +-2 px)
-    corpus = corpus_tool()
+    corpus = tool_module("torch_accuracy_corpus")
     shake = make_hard_video(**corpus.BASE, **corpus.SCENES["jitter2"])
     with tempfile.TemporaryDirectory() as tmp:
         got = {}
@@ -2077,13 +2093,14 @@ IALM_F64_ATOL = 1e-6
 WIDE_ESCAPE_CAP = 262144
 
 
-def corpus_tool():
-    """tools/torch_accuracy_corpus.py of this checkout, as a module."""
+def tool_module(name: str):
+    """tools/<name>.py of this checkout, as a module (loaded once)."""
+    if name in sys.modules:
+        return sys.modules[name]
     spec = importlib.util.spec_from_file_location(
-        "torch_accuracy_corpus", Path(__file__).resolve().parent / "tools"
-        / "torch_accuracy_corpus.py")
+        name, Path(__file__).resolve().parent / "tools" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod          # its dataclass looks its module up
+    sys.modules[name] = mod               # a dataclass looks its module up
     spec.loader.exec_module(mod)
     return mod
 
@@ -2292,7 +2309,7 @@ def phase16(np, torch, dev, cfg, card, bench, gray, gray_dev, small, wrappers, n
           f"localize_window gives the same table", flush=True)
 
     # 16h: three corpus scenes, card == CPU
-    corpus = corpus_tool()
+    corpus = tool_module("torch_accuracy_corpus")
     names = ["crowded", "jitter2", "flyby_trap"]
     got = []
     for where in (dev, torch.device("cpu")):
@@ -2392,6 +2409,165 @@ def phase17(dev, cfg, card) -> None:
     check(all(r["device_mem"] for r in rows[:-1]), "torch_soak.py read no device memory")
     print(f"phase 17 soak: {summary['passes']} passes in {secs:.1f} s, "
           f"{summary['events_per_loop']} events a loop", flush=True)
+
+
+DECODE_FLOOR_MODES = {"null", "gray_crop", "full_bgr", "cv2"}
+
+
+def phase18(np, torch, dev, cfg, card) -> None:
+    """The five campaign and measurement tools on the card, in this process
+    (the launch counters of K1, K2 and T1 are read around them)."""
+    from swiftwatcher_tpu_torch.io import native_av
+    from swiftwatcher_tpu_torch.io.source import ArraySource
+    from swiftwatcher_tpu_torch.io.synthetic import make_video
+    from swiftwatcher_tpu_torch.ops.ccl_local import converge_frames
+    from swiftwatcher_tpu_torch.ops.ccl_sweep import sweep_chunk
+    from swiftwatcher_tpu_torch.ops.fused_motion import fused_motion_filter
+    from swiftwatcher_tpu_torch.ops.ialm_front import ialm_front
+    from swiftwatcher_tpu_torch.ops.rank_compact import label_rank_fused, rank_seed_sweep
+    from swiftwatcher_tpu_torch.pipeline import tracking_device as td
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+
+    # every kernel's wrapper: which of them each tool launches (PERF.md §6)
+    wrappers = {w.__name__: w for w in (fused_motion_filter, label_rank_fused, sweep_chunk,
+                                        converge_frames, rank_seed_sweep, ialm_front,
+                                        td.track_window)}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    # 18.1 the counts gate of rpca_fixed_iters=15 over the parity-fuzz
+    # stream, device and host trackers in turn
+    rfc = tool_module("torch_rpca_fixed_counts")
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = rfc.run_campaign(scenes=4, device=dev)
+    secs = time.perf_counter() - t0
+    launches = read()
+    for r in summary["results"]:
+        print(f"phase 18 rpca_fixed_counts scene {r['scene']} ({r['tracker']} tracker, "
+              f"{r['params']['n_frames']} frames at {r['params']['H']}x{r['params']['W']}): "
+              f"dynamic {r['dynamic']}, fixed {r['fixed']}, ok {r['ok']}", flush=True)
+    print(f"phase 18 rpca_fixed_counts: {summary['scenes']} scenes, {summary['mismatches']} "
+          f"mismatches, {secs:.1f} s [{card}]; launches {launches}", flush=True)
+    check(summary["scenes"] == 4 and summary["mismatches"] == 0,
+          f"torch_rpca_fixed_counts: {summary['mismatches']} mismatches")
+    check(all(launches[k] > 0 for k in ("fused_motion_filter", "label_rank_fused",
+                                         "track_window")),
+          f"torch_rpca_fixed_counts: K1, K2 and T1 not all launched: {launches}")
+    counts = importlib.import_module("torch_parity_fuzz")._counts
+    for r in summary["results"][:2]:
+        video = make_video(**r["params"])
+        on_cpu = counts(run_video(ArraySource(video.frames, fps=video.fps), video.corners, cfg,
+                                  torch.device("cpu"), tracker_impl=r["tracker"]))
+        check(on_cpu == r["dynamic"],
+              f"torch_rpca_fixed_counts scene {r['scene']}: card {r['dynamic']}, CPU {on_cpu}")
+    print("phase 18 rpca_fixed_counts: the dynamic counts of scenes 0 and 1 equal run_video's "
+          "on the CPU", flush=True)
+
+    # 18.2 ms per IALM trip at full width: 16 windows of the 216 x 432 crop
+    br = tool_module("torch_bench_rpca")
+    X = br.make_batch(16, dev)
+    check(tuple(X.shape) == (16, cfg.window_size, 216 * 432),
+          f"torch_bench_rpca batch {tuple(X.shape)}")
+    pass_mb, floor_ms = br.pass_floor(X)
+    print(f"phase 18 bench_rpca at {tuple(X.shape)}: one f32 pass = {pass_mb:.1f} MB, "
+          f"{floor_ms:.4f} ms at {br.HBM_BYTES_PER_S / 1e12:.2f} TB/s [{card}]", flush=True)
+    reset()
+    rows = br.run_variants(X, ["production", "warm", "cold"], reps=3)
+    launches = read()
+    for r in rows:
+        print(f"phase 18 bench_rpca {br.format_row(r, floor_ms).strip()}; host samples "
+              f"{r.get('samples_ms')} ms [{card}]", flush=True)
+    print(f"phase 18 bench_rpca launches {launches}", flush=True)
+    check(all(r["ms"] > 0 and r["event_ms"] > 0 and 0 < r["trips"] <= cfg.rpca_max_iter
+              for r in rows),
+          f"torch_bench_rpca: a variant failed: {rows}")
+    check(launches["ialm_front"] == 0,
+          f"torch_bench_rpca launched K6 {launches['ialm_front']} times (its variants keep it off)")
+    del X
+
+    # 18.3 the sharded path's scaling: (1, 1) on NCCL and two ranks on gloo
+    # sharing the card
+    ms = tool_module("torch_mesh_scaling")
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        sc = ms.scaling([1, 2], per_device_windows=2, iters=2, repeats=3, device=dev,
+                        timeout=600)
+    secs = time.perf_counter() - t0
+    launches = read()
+    for r in sc["results"]:
+        print(f"phase 18 mesh_scaling data={r['data_devices']}: {r['windows_per_sec']} "
+              f"windows/s ({r['frames_per_sec']} frames/s), samples {r['elapsed_samples_s']} s, "
+              f"spread {r['spread_pct']}%, unsharded {r['unsharded_samples_s']} s, overhead "
+              f"{r['sharded_overhead_x']}x, total vs 1 {r['total_throughput_vs_1dev']} [{card}]",
+              flush=True)
+    for r in sc["model_axis_results"]:
+        print(f"phase 18 mesh_scaling model={r['model_devices']} ({r['total_windows']} windows): "
+              f"samples {r['elapsed_samples_s']} s, spread {r['spread_pct']}%, unsharded "
+              f"{r['unsharded_same_batch_s']} s, overhead {r['sharded_overhead_x']}x [{card}]",
+              flush=True)
+    print(f"phase 18 mesh_scaling: {sc['substrate']}; {secs:.1f} s; rank 0 launches "
+          f"{launches}", flush=True)
+    points = sc["results"] + sc["model_axis_results"]
+    check(len(points) == 4 and all(
+        r["elapsed_s"] > 0 and r["unsharded_same_batch_s"] > 0 and r["sharded_overhead_x"] > 0
+        for r in points) and all(r["windows_per_sec"] > 0 for r in sc["results"]),
+        f"torch_mesh_scaling: a point is not positive: {points}")
+    check(sc["mesh_backends"] == {"data=1": "nccl", "data=2": "gloo", "model=1": "nccl",
+                                  "model=2": "gloo"},
+          f"torch_mesh_scaling backends {sc['mesh_backends']}, want NCCL for one rank and "
+          "gloo for two sharing the card")
+    check(launches["fused_motion_filter"] > 0 and launches["label_rank_fused"] > 0,
+          f"torch_mesh_scaling: K1 and K2 not launched on rank 0: {launches}")
+
+    # 18.4 the host decode floor: exit 2 and its error line where the
+    # port's libav library is not built (the card's machine has none)
+    df = tool_module("torch_decode_floor")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = df.main(["--frames", "63", "--passes", "1"])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"phase 18 decode_floor: exit {rc}, {json.dumps(line)} [{card}]", flush=True)
+    if native_av.is_available():
+        check(rc == 0 and set(line["fps"]) == DECODE_FLOOR_MODES
+              and all(v > 0 for v in line["fps"].values()),
+              f"torch_decode_floor: exit {rc}, {line}")
+    else:
+        check(rc == 2 and line.get("error") in ("native av lib unavailable",
+                                                 "no H.264 encoder"),
+              f"torch_decode_floor without libav: exit {rc}, {line}")
+
+    # 18.5 the accuracy pack against the defaults at one fresh seed
+    ss = tool_module("torch_accuracy_seed_sweep")
+    out = io.StringIO()
+    reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        rc = ss.main(["--seeds", "1", "--scenes", "crowded", "jitter2", "--json", "-"])
+    secs = time.perf_counter() - t0
+    launches = read()
+    sweep = json.loads(out.getvalue())
+    for name, scene in sweep["scenes"].items():
+        for row in scene.get("seeds", []):
+            print(f"phase 18 seed_sweep {name} seed {row['seed']}: " + ", ".join(
+                f"{kind} F1 {row[kind]['base_f1']} -> {row[kind]['pack_f1']}"
+                for kind in ss.KINDS) + f" [{card}]", flush=True)
+    print(f"phase 18 seed_sweep AVG {json.dumps(sweep.get('AVG'))}; {secs:.1f} s; launches "
+          f"{launches}", flush=True)
+    check(launches["fused_motion_filter"] > 0 and launches["label_rank_fused"] > 0,
+          f"torch_accuracy_seed_sweep: K1 and K2 not launched: {launches}")
+    check(rc == 0 and set(sweep["scenes"]) == {"crowded", "jitter2"}
+          and all(len(s.get("seeds", [])) == 1 for s in sweep["scenes"].values())
+          and set(sweep.get("AVG", {})) == set(ss.KINDS),
+          f"torch_accuracy_seed_sweep: exit {rc}, scenes {list(sweep['scenes'])}, "
+          f"AVG {sweep.get('AVG')}")
 
 
 def main() -> int:

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -20,3 +22,24 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
     return torch.device("cuda", 0)
+
+
+def device_from_arg(name: str) -> torch.device:
+    """The device a --device argument names; "cuda" is the first card, and
+    a CUDA device raises where there is no card (no fallback to the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        first = require_cuda()
+        device = first if device.index is None else device
+    return device
+
+
+def card_line(device) -> str | None:
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card (None on
+    the CPU)."""
+    if torch.device(device).type != "cuda":
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]

@@ -61,12 +61,14 @@ print("ok", len({modules!r}))
 """
 
 # Tools of the port that import pandas, cv2 or h5py inside their functions
-# (the corpus and its scoring, the stage PNGs, the user tools, the soak):
+# (the corpus and its scoring, the stage PNGs, the user tools, the soak, the
+# campaign and measurement tools):
 # imported by the probe above, and held to no JAX by
 # test_port_tools_import_no_jax.
 PORT_TOOLS = ["torch_accuracy_corpus", "torch_dump_stages", "torch_evaluate",
               "torch_extract_frames", "torch_export_corners", "torch_make_h5_cache",
-              "torch_soak"]
+              "torch_soak", "torch_rpca_fixed_counts", "torch_accuracy_seed_sweep",
+              "torch_mesh_scaling", "torch_decode_floor", "torch_bench_rpca"]
 # Entry points at the repo's root that drive the port.
 ROOT_SCRIPTS = ["chip_smoke", "bench_torch"]
 
@@ -114,7 +116,9 @@ def _imported_tops(path):
 @pytest.mark.parametrize(
     "script", ["chip_smoke.py", "tools/torch_profile.py", "tools/time_kernels.py",
                "tools/torch_parity_fuzz.py", "tools/torch_mesh_fuzz.py", "bench_torch.py",
-               "tools/torch_soak.py"]
+               "tools/torch_soak.py", "tools/torch_rpca_fixed_counts.py",
+               "tools/torch_accuracy_seed_sweep.py", "tools/torch_mesh_scaling.py",
+               "tools/torch_decode_floor.py", "tools/torch_bench_rpca.py"]
 )
 def test_card_scripts_import_the_port_only(script):
     """The port keeps its own copies of the host modules it needs."""

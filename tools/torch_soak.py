@@ -32,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import bench_torch  # noqa: E402
 from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG  # noqa: E402
+from swiftwatcher_tpu_torch.device import card_line, device_from_arg  # noqa: E402
 from swiftwatcher_tpu_torch.io.source import ArraySource, LoopingArraySource  # noqa: E402
 from swiftwatcher_tpu_torch.io.synthetic import make_video  # noqa: E402
 from swiftwatcher_tpu_torch.pipeline.runner import run_video  # noqa: E402
@@ -68,7 +69,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="write the summary JSON here as well")
     args = ap.parse_args(argv)
 
-    device = bench_torch.device_from_arg(args.device)
+    device = device_from_arg(args.device)
     watchdog = bench_torch._arm_watchdog()
     try:
         return _soak(args, device)
@@ -130,7 +131,7 @@ def _soak(args, device: torch.device) -> int:
         "rss_mb_growth": round(rss_curve[-1] - rss_curve[0], 1) if len(rss_curve) > 1 else 0.0,
         "device_mem_last": passes[-1]["device_mem"],
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
-        "card": bench_torch.card_line(device),
+        "card": card_line(device),
         "config": {"track_enum_lap": cfg.track_enum_lap, "tracker": "device"},
         "per_pass": passes,
     }
