@@ -17,7 +17,6 @@ twice.  Nothing here runs at import time.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +31,8 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
+
+from .utils.metrics import trace_range
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parent.parent
@@ -278,9 +279,7 @@ def launch(name: str, entry: str, device: torch.device, *args,
     nonzero cudaError_t.  While a profiler runs, its trace shows the call
     as a range named `entry`."""
     lib = load_library(name, defines)
-    traced = (torch.profiler.record_function(entry) if torch.autograd._profiler_enabled()
-              else contextlib.nullcontext())
-    with traced, torch.cuda.device(device):
+    with trace_range(entry), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, entry)(*args, stream)
     if rc != 0:

@@ -31,6 +31,11 @@ bytes:
 
 The first two need no full frame, so they are off when the caller keeps
 the frames (the classifier and the segment export crop from them).
+
+Given the run's metrics (utils/metrics.py), the worker binds them on its
+thread and books each batch's reads into the pinned buffer as a
+`prefetch_read` span and its upload (or encode and put) as a
+`prefetch_upload` span.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, PipelineConfig
 from ..ops.color import bgr_to_gray_host
+from ..utils.metrics import RunMetrics, bind, span
 from . import native
 from .source import FrameSource
 from .wirecodec import device_put_packet, device_put_packet6, encode_delta4, encode_delta6
@@ -81,7 +87,8 @@ class WindowPrefetcher:
     "gray_stream" or "frames".  `codec` is the wire codec engaged (None for
     raw), `link_bytes_per_s` the rate `auto` measured (None unless auto),
     `bytes_uploaded` the bytes shipped and `batches_by_format` the batches
-    shipped as "raw", "delta4" and "delta6"."""
+    shipped as "raw", "delta4" and "delta6".  `metrics`, when given, is the
+    run the worker's spans book into."""
 
     def __init__(
         self,
@@ -92,8 +99,10 @@ class WindowPrefetcher:
         initial_planned: int = 0,
         keep_frames: bool = False,
         frame_hw: Optional[Tuple[int, int]] = None,
+        metrics: Optional[RunMetrics] = None,
     ):
         self.source = source
+        self.metrics = metrics
         self.keep_frames = keep_frames
         self.cfg = cfg
         self.device = torch.device(device)
@@ -184,6 +193,10 @@ class WindowPrefetcher:
         return (frames if self.keep_frames else None), numbers, stamps, gray
 
     def _produce(self):
+        with bind(self.metrics):
+            return self._produce_batch()
+
+    def _produce_batch(self):
         if self._exhausted:
             return None
         cfg = self.cfg
@@ -191,39 +204,42 @@ class WindowPrefetcher:
         pin = self.device.type == "cuda"
         host = view = None
         wins = []
-        while len(wins) < B and self._planned < self.source.total_frames:
-            if self.mode == "frames":
-                frames, numbers, stamps, gray = self._frames_window(
-                    None if view is None else view[len(wins)])
-            else:
-                # the crop's shape is the region's: both paths need it inside
-                # the frame
-                if view is None:
-                    host = torch.empty((B, cfg.window_size, self.y2 - self.y1,
-                                        self.x2 - self.x1), dtype=torch.uint8, pin_memory=pin)
-                    view = host.numpy()
-                if self.mode == "encoded":
-                    frames, numbers, stamps = self._encoded_window(view[len(wins)])
+        with span("prefetch_read"):
+            while len(wins) < B and self._planned < self.source.total_frames:
+                if self.mode == "frames":
+                    frames, numbers, stamps, gray = self._frames_window(
+                        None if view is None else view[len(wins)])
                 else:
-                    _, numbers, stamps = self.source.get_gray_crop_window(
-                        cfg.window_size, out=view[len(wins)])
-                    frames = None
-            if view is None:
-                # the first window of a frames batch fixes the crop's shape
-                host = torch.empty((B, *gray.shape), dtype=torch.uint8, pin_memory=pin)
-                view = host.numpy()
-                view[0] = gray
-            wins.append((frames, numbers, stamps))
-            self._planned += sum(1 for n in numbers if n >= 0)
+                    # the crop's shape is the region's: both paths need it
+                    # inside the frame
+                    if view is None:
+                        host = torch.empty((B, cfg.window_size, self.y2 - self.y1,
+                                            self.x2 - self.x1), dtype=torch.uint8,
+                                           pin_memory=pin)
+                        view = host.numpy()
+                    if self.mode == "encoded":
+                        frames, numbers, stamps = self._encoded_window(view[len(wins)])
+                    else:
+                        _, numbers, stamps = self.source.get_gray_crop_window(
+                            cfg.window_size, out=view[len(wins)])
+                        frames = None
+                if view is None:
+                    # the first window of a frames batch fixes the crop's shape
+                    host = torch.empty((B, *gray.shape), dtype=torch.uint8, pin_memory=pin)
+                    view = host.numpy()
+                    view[0] = gray
+                wins.append((frames, numbers, stamps))
+                self._planned += sum(1 for n in numbers if n >= 0)
         if not wins:
             self._exhausted = True
             return None
         view[len(wins):] = view[len(wins) - 1]
-        payload = self._encode(view) if self.codec is not None else None
-        if payload is None:
-            payload = host.to(self.device, non_blocking=pin)
-            self.bytes_uploaded += host.numel()
-            self.batches_by_format["raw"] += 1
+        with span("prefetch_upload"):
+            payload = self._encode(view) if self.codec is not None else None
+            if payload is None:
+                payload = host.to(self.device, non_blocking=pin)
+                self.bytes_uploaded += host.numel()
+                self.batches_by_format["raw"] += 1
         if self._planned >= self.source.total_frames:
             self._exhausted = True
         return payload, wins, (self.source.next_frame_number, self._planned)

@@ -26,6 +26,8 @@ take the place of the JAX package's whole-plane compares (`verify_fixpoint`
 and `any(new != lbl)`), each read by one host sync.
 
 `label_components.slow_path_frames` counts the frames the slow path took.
+Each host read of a flag (the flagged frames, each chunk's or check's
+"changed") is a `sync.ccl_flag` span of the run's metrics.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.metrics import span
 from .ccl_local import converge_frames
 from .ccl_sweep import sweep_chunk
 from .rank_compact import RANK_SWEEPS, label_rank_fused, rank_seed_sweep, raster_index
@@ -44,9 +47,15 @@ _CHUNK = 4
 _FLOOD_SWEEPS = 24
 
 
+def _any(flags: torch.Tensor) -> bool:
+    """Whether any of `flags` is set: one host read of the device."""
+    with span("sync.ccl_flag"):
+        return bool(flags.any())
+
+
 def _unsettled(x: torch.Tensor, fg: torch.Tensor, sentinel: float) -> bool:
     """True if another sweep would still change `x`."""
-    return bool(sweep_chunk(x, fg, 1, sentinel)[1].any())
+    return _any(sweep_chunk(x, fg, 1, sentinel)[1])
 
 
 def _flood(
@@ -56,7 +65,7 @@ def _flood(
     it = 0
     while changed and it < _FLOOD_SWEEPS:
         x, ch = sweep_chunk(x, fg, _CHUNK, sentinel)
-        changed = bool(ch.any())
+        changed = _any(ch)
         it += _CHUNK
     return x, changed
 
@@ -92,7 +101,7 @@ def _settle_labels(
         cand = sweep_chunk(lbl, fg, _CHUNK, sentinel)[0].reshape(T, -1)
         jumped = torch.cat([cand, tail], dim=1).gather(1, cand.long())
         new = torch.where(fg, jumped.reshape(lbl.shape), torch.full_like(lbl, sentinel))
-        changed = bool((new != lbl).any())
+        changed = _any(new != lbl)
         lbl, it = new, it + 1
     return lbl
 
@@ -102,7 +111,7 @@ def _rank_map(
 ) -> torch.Tensor:
     """Converged labels -> f32 map of each pixel's root rank (bg sentinel)."""
     rank, unsettled = rank_seed_sweep(lbl, RANK_SWEEPS)
-    rank, changed = _flood(rank, fg, sentinel, bool(unsettled.any()))
+    rank, changed = _flood(rank, fg, sentinel, _any(unsettled))
     rank, changed = _converge(rank, fg, sentinel, changed, max_iters)
     if changed:
         # pathological components: rank[root[p]] by one gather
@@ -125,7 +134,8 @@ def label_components(
     fg = fg.contiguous()
     lbl, labels, flag = label_rank_fused(fg, RANK_SWEEPS)
     counts = labels.amax(dim=(1, 2))
-    slow = flag.nonzero().squeeze(1)
+    with span("sync.ccl_flag"):
+        slow = flag.nonzero().squeeze(1)
     if slow.numel():
         label_components.slow_path_frames += int(slow.numel())
         sentinel = float(H * W)

@@ -14,6 +14,8 @@ from typing import Callable
 
 import torch
 
+from ..utils.metrics import span
+
 MAX_LABELS = 256  # uint8 label domain, slot 0 = background
 
 # Label capacity of the small table pass; batches holding a label at or
@@ -42,7 +44,9 @@ class RegionTable:
 
 
 def _counts(bins: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.bincount(bins.reshape(-1), minlength=n)
+    # on a card bincount reads the bins' least and greatest value back
+    with span("sync.props_bincount"):
+        return torch.bincount(bins.reshape(-1), minlength=n)
 
 
 def _moment_tables(lab: torch.Tensor, K: int, with_bbox: bool):
@@ -92,6 +96,7 @@ def region_tables(labels_u8: torch.Tensor, with_bbox: bool = True) -> RegionTabl
     centroids only)."""
     *lead, H, W = labels_u8.shape
     lab = labels_u8.reshape(-1, H, W).to(torch.int64)
-    fits = lab.numel() == 0 or int(lab.max()) < FAST_LABELS
+    with span("sync.props_max"):
+        fits = lab.numel() == 0 or int(lab.max()) < FAST_LABELS
     parts = _moment_tables(lab, FAST_LABELS if fits else MAX_LABELS, with_bbox)
     return RegionTable(**parts).map(lambda a: a.reshape(*lead, MAX_LABELS))

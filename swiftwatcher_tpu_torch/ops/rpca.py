@@ -24,6 +24,9 @@ Quirks of the reference kept on purpose:
     uint8 cast.
 
 The dynamic loop reads `any(active)` back to the host once per iteration.
+That read and each `eigh`, which synchronises the card with the host, run
+in `sync.` spans of the run's metrics (utils/metrics.py); the solve is the
+`ialm_solve` span.
 
 Sequence parallelism (parallel/mesh.py): with a `group`, X is one block of
 the pixel axis and the solve runs on every rank of the group together; the
@@ -38,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import DEFAULT_CONFIG, PipelineConfig
+from ..utils.metrics import span
 from .ialm_front import front_chain, ialm_front, ialm_front_reference
 
 _DTYPES = {
@@ -56,7 +60,8 @@ def _refined_eigh(G: torch.Tensor, steps: int = 2):
     """eigh with first-order Newton refinement: V <- orth(V (I + F)),
     F_ij = (V^T G V)_ij / (d_j - d_i), clamped, skipped for clustered
     eigenvalues."""
-    _, V = torch.linalg.eigh(G)
+    with span("sync.ialm_eigh"):
+        _, V = torch.linalg.eigh(G)
     n = G.shape[-1]
     eye = torch.eye(n, dtype=G.dtype, device=G.device)
     tiny = torch.finfo(G.dtype).tiny
@@ -264,7 +269,9 @@ def ialm_rpca_batched(
     err = torch.full((B,), float("inf"), dtype=dtype, device=X.device)
     while True:
         active = (err >= tol) & (itr < max_iter)                     # (B,)
-        if not bool(active.any()):
+        with span("sync.ialm_stop"):
+            done = not bool(active.any())
+        if done:
             break
         Aupd, Eupd, Ynew, mu_new, Vn, Z = update(A, Y, mu, V)
         err_new = torch.sqrt(allsum((Z * Z).sum(dim=(-2, -1)))) / frob
@@ -326,7 +333,8 @@ def rpca_motion_window_batched(
     dtype = _DTYPES[cfg.rpca_dtype]
     P = H * W
     X = gray_windows.reshape(B, T, P).to(dtype)
-    _, E, iters = ialm_rpca_batched(X, **ialm_gates_and_kwargs(cfg, dtype, X.device))
+    with span("ialm_solve"):
+        _, E, iters = ialm_rpca_batched(X, **ialm_gates_and_kwargs(cfg, dtype, X.device))
     return motion_from_E(E, P).reshape(B, T, H, W), iters
 
 

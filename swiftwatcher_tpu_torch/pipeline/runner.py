@@ -69,7 +69,7 @@ from ..ops.roi_mask import generate_roi_mask
 from ..ops.stabilize import stabilize_window
 from ..parallel.mesh import sharded_localize_windows_gray
 from ..utils import checkpoint
-from ..utils.metrics import RunMetrics
+from ..utils.metrics import RunMetrics, bind, trace_range
 from .classify_fused import classify_track_fused, pack_fused
 from .events import ClassifiedEvents, classify_events, labels_dataframe
 from .tracking import Event, SegmentTracker
@@ -210,8 +210,10 @@ def run_video(
     there as trace.json (Chrome trace format: chrome://tracing or
     Perfetto), with the host's stages as ranges named as the JAX
     package's annotations (localize_dispatch, track_dispatch, consume,
-    classify_pack, classify_track_fused, classify) and the kernels' C
-    launchers by their entry names.  Each batch's localisation and
+    classify_pack, classify_track_fused, classify), the run's other spans
+    (prefetch_wait, stabilize, ialm_solve and each blocking read's sync.
+    span; utils/metrics.py) and the kernels' C launchers by their entry
+    names.  Each batch's localisation and
     tracking scan are also timed on the device and waited for, into the
     manifest's device_stage_seconds ("localize", "track_scan"); so the
     stages no longer overlap, and frames/s drop while profiling.  The
@@ -251,9 +253,6 @@ def run_video(
     if profiling:
         profile_dir = Path(profile_dir)
         profile_dir.mkdir(parents=True, exist_ok=True)
-    # a stage's range in the trace (a no-op while no profiler runs)
-    annotate = torch.profiler.record_function
-
     @contextlib.contextmanager
     def device_stage(stage: str):
         """While profiling, add the stage's device time to the manifest's
@@ -336,7 +335,7 @@ def run_video(
             planes = torch.stack((kvalid.to(torch.int32),) + compacted[4])
             return ("frames", cy, cx, kvalid, overflow, fns, active,
                     _start_readback(planes))
-        with annotate("track_dispatch"), device_stage("track_scan"):
+        with device_stage("track_scan"):
             dev_state, events = track_window(
                 dev_state, roi_dev, cy.reshape(B * T, -1), cx.reshape(B * T, -1),
                 kvalid.reshape(B * T, -1), fns, cfg, active=active,
@@ -351,10 +350,8 @@ def run_video(
         n_kept or None), n_kept being the fused path's kept count on the
         device."""
         nonlocal dev_state
-        t0 = time.perf_counter()
-        planes = _finish_readback(readback)
-        metrics.stage_seconds["classify_readback"] = (
-            metrics.stage_seconds.get("classify_readback", 0.0) + time.perf_counter() - t0)
+        with metrics.span("classify_readback"):
+            planes = _finish_readback(readback)
         view = _CompactTableView(planes[0].astype(bool), *planes[1:])
         B, T, K = view.valid.shape
         frames_by_bt = {(b, t): wins[b][0][t] for b in range(len(wins)) for t in range(T)
@@ -364,23 +361,20 @@ def run_video(
         # never reads back
         if (export_segments_dir is None and cfg.classify_fused and frames_by_bt
                 and getattr(segment_filter, "supports_fused", False)):
-            with annotate("classify_pack"):
+            with trace_range("classify_pack"):
                 fused = pack_fused(segment_filter, view, frames_by_bt, crop_region,
                                    timers=metrics.stage_seconds)
         if fused is not None:
             canv, meta, mx = fused
             coeff = segment_filter._coeff_table(mx)
-            t0 = time.perf_counter()
-            with annotate("classify_track_fused"):
+            with metrics.span("classify_device", trace_name="classify_track_fused"):
                 dev_state, events, n_kept = classify_track_fused(
                     segment_filter.params, coeff, canv, meta, dev_state, roi_dev,
                     cy, cx, kvalid, fns, active, cfg)
-            metrics.stage_seconds["classify_device"] = (
-                metrics.stage_seconds.get("classify_device", 0.0) + time.perf_counter() - t0)
             return events, overflow, dev_state, n_kept
         keep_masks = {}
         if segment_filter is not None and frames_by_bt:
-            with annotate("classify"):
+            with trace_range("classify"):
                 if batchable:
                     keep_masks = segment_filter.batch_call(view, frames_by_bt, crop_region,
                                                            timers=metrics.stage_seconds)
@@ -405,7 +399,7 @@ def run_video(
                         frames[t], view, (b, t), numbers[t], crop_region,
                         export_segments_dir, Path(source.filepath).stem, cfg, keep=keep)
         # the unfused path, and a batch without segments, track here
-        with annotate("track_dispatch"):
+        with metrics.span("track_dispatch"):
             dev_state, events = track_window(
                 dev_state, roi_dev, cy.reshape(B * T, K), cx.reshape(B * T, K),
                 kvalid.reshape(B * T, K), fns, cfg, active=active)
@@ -415,8 +409,9 @@ def run_video(
         """Read back one batch's event buffer and append its events.  The
         scan carries frame numbers only; the port's stamp of a frame is its
         frame number, so the events equal the host tracker's."""
-        ev = events.to_numpy()
-        metrics.track_overflows += int(overflow.sum())
+        with metrics.span("sync.consume_events"):
+            ev = events.to_numpy()
+            metrics.track_overflows += int(overflow.sum())
         if n_kept is not None:
             metrics.segments_total += int(n_kept)
         if ev["overflow"]:
@@ -433,8 +428,8 @@ def run_video(
     def consume(pending):
         nonlocal frames_processed
         table, iters, wins, cursor, on_device = pending
-        metrics.stage_start("consume")
-        iters = iters.cpu().numpy()
+        with metrics.span("sync.consume_iters"):
+            iters = iters.cpu().numpy()
         if on_device is not None:
             if on_device[0] == "frames":
                 on_device = frames_on_device(wins, *on_device[1:])
@@ -460,7 +455,7 @@ def run_video(
                 frames_by_bt = {(b, t): frames[t] for b, (frames, numbers, _) in enumerate(wins)
                                 for t in range(cfg.window_size)
                                 if numbers[t] >= 0 and table.valid[b, t].any()}
-                with annotate("classify"):
+                with trace_range("classify"):
                     keep_masks = segment_filter.batch_call(table, frames_by_bt, crop_region,
                                                            timers=metrics.stage_seconds)
             for b, (frames, numbers, stamps) in enumerate(wins):
@@ -504,9 +499,6 @@ def run_video(
                 checkpoint.save_checkpoint(
                     checkpoint_path, cursor[0], frames_processed, tracker, source.fps,
                     source_info=src_info)
-        metrics.stage_stop("consume")
-        if status_cb is not None:
-            status_cb(frames_processed, source.total_frames)
 
     def localize(payload):
         """One batch's tables and IALM iterations, from the prefetcher's
@@ -525,45 +517,51 @@ def run_video(
         gray = decode_packet(payload).reshape(shape) if packed else payload
         # stabilisation on the whole batch, before sharding
         if cfg.stabilize_max_shift > 0:
-            gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
+            with metrics.span("stabilize"):
+                gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
         return sharded_localize_windows_gray(gray, mesh, cfg, with_bbox=needs_frames)
 
     prefetcher = WindowPrefetcher(source, crop_region, device, cfg,
                                   initial_planned=frames_processed, keep_frames=needs_frames,
-                                  frame_hw=None if ff is None else ff.shape[:2])
+                                  frame_hw=None if ff is None else ff.shape[:2],
+                                  metrics=metrics)
     profiler = _start_trace(device) if profiling else None
-    try:
-        # dispatch batch k+1 before consuming batch k
-        pending = None
-        while True:
-            metrics.stage_start("prefetch_wait")
-            batch = prefetcher.next()
-            metrics.stage_stop("prefetch_wait")
-            nxt = None
-            if batch is not None:
-                payload, wins, cursor = batch
-                metrics.stage_start("localize")
-                with annotate("localize_dispatch"), device_stage("localize"):
-                    table, iters = localize(payload)
-                metrics.stage_stop("localize")
-                on_device = None
-                if use_device_tracker:
-                    metrics.stage_start("track_dispatch")
-                    on_device = track_on_device(table, wins)
-                    metrics.stage_stop("track_dispatch")
-                nxt = (table, iters, wins, cursor, on_device)
-            if pending is not None:
-                with annotate("consume"):
-                    consume(pending)
-            pending = nxt
-            if nxt is None:
-                break
-    finally:
-        prefetcher.close()
-        if profiler is not None:
-            _stop_trace(profiler, profile_dir)
-    if deferred[0] is not None:
-        drain_device_events(*deferred[0])
+    # the ops below the runner book their spans into this run's metrics
+    with bind(metrics):
+        try:
+            # dispatch batch k+1 before consuming batch k
+            pending = None
+            while True:
+                with metrics.span("prefetch_wait"):
+                    batch = prefetcher.next()
+                nxt = None
+                if batch is not None:
+                    payload, wins, cursor = batch
+                    with (metrics.span("localize", trace_name="localize_dispatch"),
+                          device_stage("localize")):
+                        table, iters = localize(payload)
+                    on_device = None
+                    if use_device_tracker:
+                        # with frames kept, the scan is dispatched, and
+                        # spanned, in consume (frames_on_device)
+                        with (contextlib.nullcontext() if needs_frames
+                              else metrics.span("track_dispatch")):
+                            on_device = track_on_device(table, wins)
+                    nxt = (table, iters, wins, cursor, on_device)
+                if pending is not None:
+                    with metrics.span("consume"):
+                        consume(pending)
+                    if status_cb is not None:
+                        status_cb(frames_processed, source.total_frames)
+                pending = nxt
+                if nxt is None:
+                    break
+        finally:
+            prefetcher.close()
+            if profiler is not None:
+                _stop_trace(profiler, profile_dir)
+        if deferred[0] is not None:
+            drain_device_events(*deferred[0])
 
     events = tracker.events
     metrics.events = len(events)

@@ -29,6 +29,7 @@ from ..ops.filtering import apply_postfilter, bilateral_blur, grayscale_opening,
 from ..ops.props import RegionTable, region_tables
 from ..ops.rpca import rpca_motion_window, rpca_motion_window_batched
 from ..ops.stabilize import stabilize_window
+from ..utils.metrics import span
 
 
 def localize_windows_gray(
@@ -46,7 +47,8 @@ def localize_windows_gray(
     (the runner's: the gray crop of the ROI mask's frame); None aligns
     each window to its own mean."""
     if cfg.stabilize_max_shift > 0:
-        gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
+        with span("stabilize"):
+            gray, _ = stabilize_window(gray, cfg.stabilize_max_shift, stab_ref)
     B, T, H, W = gray.shape
     motion, iters = rpca_motion_window_batched(gray, cfg)
     filtered = apply_postfilter(motion.reshape(B * T, H, W), cfg)

@@ -4,15 +4,30 @@ The port's copy of swiftwatcher_tpu/utils/metrics.py.  The reference's only
 observability is two stdout lines (ui.py:216-227); these are structured
 per-stage counters (frames/sec, segments/frame, IALM iterations, events),
 exportable as a JSON run manifest.
+
+Spans.  `RunMetrics.span(name)` times a block into
+stage_seconds[name], counts it in counters[name] and, while a
+torch.profiler session runs, opens a range in its trace (`trace_name`, or
+the span's own name), so that host seconds and device trace share one set
+of names.  run_video binds its RunMetrics to its thread for the length of
+the call (`bind`), and the prefetcher's worker binds the same object on its
+own thread; the ops below the runner call the module-level `span`, which
+books into the run bound on the calling thread and, with no run bound,
+books nothing but still opens the trace range.  `counters` stays
+out of the manifest, whose keys are the JAX package's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional
+
+import torch
 
 
 @dataclasses.dataclass
@@ -33,6 +48,8 @@ class RunMetrics:
     # DEVICE time per stage, filled only by a profiled run (run_video's
     # profile_dir: forced-completion waits of "localize" and "track_scan")
     device_stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # how many times each span ran
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
     _stage_t0: Dict[str, float] = dataclasses.field(default_factory=dict, repr=False)
 
     def stage_start(self, name: str) -> None:
@@ -44,6 +61,18 @@ class RunMetrics:
             self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + (
                 time.perf_counter() - t0
             )
+
+    @contextlib.contextmanager
+    def span(self, name: str, trace_name: Optional[str] = None) -> Iterator[None]:
+        """Time the block into stage_seconds[name] and count it; under a
+        profiler, also a trace range named trace_name (default: name)."""
+        self.counters[name] = self.counters.get(name, 0) + 1
+        with trace_range(trace_name or name):
+            self.stage_start(name)
+            try:
+                yield
+            finally:
+                self.stage_stop(name)
 
     def device_stage_add(self, name: str, seconds: float) -> None:
         self.device_stage_seconds[name] = (
@@ -88,3 +117,40 @@ class RunMetrics:
         path.parent.mkdir(parents=True, exist_ok=True)
         with open(path, "w") as fh:
             json.dump(self.summary(), fh, indent=2)
+
+
+_BOUND = threading.local()
+
+
+def trace_range(name: str):
+    """A record_function range while a profiler runs, else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def bound() -> Optional[RunMetrics]:
+    """The run bound on this thread, or None."""
+    return getattr(_BOUND, "metrics", None)
+
+
+@contextlib.contextmanager
+def bind(metrics: Optional[RunMetrics]) -> Iterator[Optional[RunMetrics]]:
+    """Make `metrics` the run that span() books into on this
+    thread for the block (None: no run), then restore the one before."""
+    before = bound()
+    _BOUND.metrics = metrics
+    try:
+        yield metrics
+    finally:
+        _BOUND.metrics = before
+
+
+def span(name: str, trace_name: Optional[str] = None):
+    """RunMetrics.span of the run bound on this thread; with none bound,
+    only the trace range (under a profiler)."""
+    metrics = bound()
+    if metrics is None:
+        return trace_range(trace_name or name)
+    return metrics.span(name, trace_name)
+
