@@ -93,6 +93,9 @@ _SIGNATURES = {
             _INT, _INT, _INT, _INT, _INT, _INT, _FLOAT, _VOID_P,
         ],
     },
+    "refined_eigh": {
+        "swt_refined_eigh": [*[_VOID_P] * 4, _INT, _INT, _INT, _FLOAT, _INT, _VOID_P],
+    },
     "track_scan": {
         "swt_track_scan": [
             *[_VOID_P] * 7, _VOID_P, _INT, _INT,        # state in; ROI mask, H, W
@@ -104,15 +107,19 @@ _SIGNATURES = {
             _VOID_P, _VOID_P,                           # kernels launched (host int); stream
         ],
     },
+    # K7's barrier-round micro-kernel (chip_smoke.py phase 19), no part of the port
+    "k7_latency": {
+        "swt_k7_latency": [_INT, _INT, _INT, _VOID_P, _VOID_P],
+    },
     # T1's latency micro-kernels (chip_smoke.py phase 11), no part of the port
     "t1_latency": {
         "swt_t1_latency": [_INT, _INT, _INT, _VOID_P, _VOID_P],
     },
 }
 
-# The sources of the port's kernels (built by build_all), and the one that
-# only measures them.
-TOOL_SOURCES = ("t1_latency",)
+# The sources of the port's kernels (built by build_all), and the ones that
+# only measure them.
+TOOL_SOURCES = ("k7_latency", "t1_latency")
 KERNEL_SOURCES = tuple(sorted(n for n in _SIGNATURES if n not in TOOL_SOURCES))
 
 

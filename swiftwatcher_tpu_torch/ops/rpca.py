@@ -6,9 +6,10 @@ with its two SVD methods, "device" (the row-space SVD below) and
 "host_svd" (numpy's LAPACK SVD of a host copy, the validation oracle the
 device solver is held to).  The SVD of each tall-skinny
 iterate (T = 21 frames x P pixels) is taken through its row space: a T x T
-eigendecomposition refined by Newton steps, then a one-sided polish round
-that restores relative accuracy on the small singular values.  The products
-are `torch.matmul`, the 21 x 21 work `torch.linalg.eigh`/`qr`.
+eigendecomposition refined by Newton steps (ops/refined_eigh.py: the
+kernel K7 on a CUDA f32 solve, else torch.linalg.eigh and qr), then a
+one-sided polish round that restores relative accuracy on the small
+singular values.  The products are `torch.matmul`.
 
 The warm-basis solver (the shipped default) carries the eigenbasis across
 iterations.  The cold-start solver forms each iterate's T x T Gram and takes
@@ -23,10 +24,12 @@ Quirks of the reference kept on purpose:
   * motion is the negated sparse part, clipped to [0, 255] before the
     uint8 cast.
 
-The dynamic loop reads `any(active)` back to the host once per iteration.
-That read and each `eigh`, which synchronises the card with the host, run
-in `sync.` spans of the run's metrics (utils/metrics.py); the solve is the
-`ialm_solve` span.
+The dynamic loop reads `any(active)` back to the host once per iteration,
+in a `sync.ialm_stop` span of the run's metrics (utils/metrics.py); on a
+CUDA f32 solve that is the trip's only read, and K7 runs in an `ialm_eigh`
+span, while elsewhere each `eigh`, which synchronises the card with the
+host, runs in a `sync.ialm_eigh` span.  The solve is the `ialm_solve`
+span.
 
 Sequence parallelism (parallel/mesh.py): with a `group`, X is one block of
 the pixel axis and the solve runs on every rank of the group together; the
@@ -43,6 +46,7 @@ import torch
 from ..config import DEFAULT_CONFIG, PipelineConfig
 from ..utils.metrics import span
 from .ialm_front import front_chain, ialm_front, ialm_front_reference
+from .refined_eigh import refined_eigh
 
 _DTYPES = {
     "float32": torch.float32,
@@ -56,38 +60,16 @@ def _t(a: torch.Tensor) -> torch.Tensor:
     return a.transpose(-1, -2)
 
 
-def _refined_eigh(G: torch.Tensor, steps: int = 2):
-    """eigh with first-order Newton refinement: V <- orth(V (I + F)),
-    F_ij = (V^T G V)_ij / (d_j - d_i), clamped, skipped for clustered
-    eigenvalues."""
-    with span("sync.ialm_eigh"):
-        _, V = torch.linalg.eigh(G)
-    n = G.shape[-1]
-    eye = torch.eye(n, dtype=G.dtype, device=G.device)
-    tiny = torch.finfo(G.dtype).tiny
-    evals = None
-    for _ in range(steps):
-        R = _t(V) @ (G @ V)
-        d = torch.diagonal(R, dim1=-2, dim2=-1)
-        diff = d[..., None, :] - d[..., :, None]
-        scale = d.abs().amax(dim=-1, keepdim=True)[..., None] + tiny
-        safe = torch.where(diff.abs() > 1e-12 * scale, diff, torch.full_like(diff, float("inf")))
-        F = torch.clamp(R / safe, -0.5, 0.5) * (1.0 - eye)
-        V, _ = torch.linalg.qr(V @ (eye + F))
-        evals = d
-    return evals, V
-
-
 def _row_space_svd(M: torch.Tensor, polish_steps: int = 2):
     """(S, V) of tall-skinny M (..., P, T) through its row space: the Gram's
     refined eigenbasis, then one-sided polish steps (rotate the columns,
     W = M V, and re-diagonalise W^T W) that restore full relative accuracy
     on the small singular values, which a plain Gram eigh loses in f32."""
-    _, V = _refined_eigh(_t(M) @ M)
+    _, V = refined_eigh(_t(M) @ M)
     S2 = None
     for _ in range(polish_steps):
         W = M @ V
-        d, V1 = _refined_eigh(_t(W) @ W)
+        d, V1 = refined_eigh(_t(W) @ W)
         V = V @ V1
         S2 = d
     return torch.sqrt(torch.clamp(S2, min=0.0)), V
@@ -228,12 +210,12 @@ def ialm_rpca_batched(
             V0 = V      # last iteration's basis; the polish re-converges it
         else:
             Eupd, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
-            _, V0 = _refined_eigh(allsum(G))
+            _, V0 = refined_eigh(allsum(G))
         # Row-space SVD from the basis V0 and one polish round:
         # A = V diag(r) V^T M = [(V diag r) V1^T] (V0^T M) = Q W1.
         W1 = _t(V0) @ M
         C = allsum(W1 @ _t(W1))
-        d, V1 = _refined_eigh(C)
+        d, V1 = refined_eigh(C)
         S = torch.sqrt(torch.clamp(d, min=0.0))
         Vn = V0 @ V1
         floor = eps * S.amax(dim=-1, keepdim=True) + tiny
@@ -252,7 +234,7 @@ def ialm_rpca_batched(
     if warm_basis:
         # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
         M0 = X + (1.0 / mu0)[..., None, None] * Y0
-        _, V = _refined_eigh(allsum(M0 @ _t(M0)))
+        _, V = refined_eigh(allsum(M0 @ _t(M0)))
     else:
         V = torch.eye(T, dtype=dtype, device=X.device).expand(B, T, T)
     A = E = torch.zeros_like(X, dtype=sd_ae if sd_ae is not None else dtype)
