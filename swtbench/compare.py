@@ -27,6 +27,16 @@ by which one flipped edge pixel moves a centroid.
   totals_gap_pct         |predicted gap| + |rejected gap|, as a share of
                          the reference's events
 
+and, only where the program ran a segment filter, over the crops of the
+frames compared (a crop is a frame's segment by its index in label order;
+an empty slice is no crop):
+
+  logit_gap              the largest |program - reference| over both
+                         logits of every crop that both sides classified
+  keep_off_pct           crops whose keep decision (argmax 1) differs, as
+                         a share of the crops compared; a crop that only
+                         one side classified counts as differing
+
 A cell's limits (swtbench/checks/<cell>.json) name the numbers it compares.
 """
 
@@ -35,6 +45,8 @@ from __future__ import annotations
 import math
 from collections import defaultdict
 from typing import Dict, List, Sequence
+
+import numpy as np
 
 MATCH_PX = 0.5
 
@@ -58,9 +70,10 @@ def unpaired(mine: Sequence, theirs: Sequence, gap=math.dist) -> int:
 
 def numbers(program: dict, reference: dict) -> Dict[str, float]:
     """program: {"events", "predicted", "rejected", "iters", "segments",
-    "shifts"}, its iters per window and its segments and shifts per frame
-    of the stream (the frames compared); reference: the same, per window
-    and frame of the base clip."""
+    "shifts", "logits"}, its iters per window and its segments and shifts
+    per frame of the stream (the frames compared), its logits per crop
+    (None without a filter); reference: the same, per window and frame of
+    the base clip."""
     ref_iters = list(reference["iters"])
     U = len(ref_iters)
     iters_gap = max((abs(int(p) - int(ref_iters[k % U])) for k, p in enumerate(program["iters"])),
@@ -86,7 +99,7 @@ def numbers(program: dict, reference: dict) -> Dict[str, float]:
         shift_off = sum(1 for fn in range(len(segs))
                         if fn >= len(shifts) or tuple(shifts[fn]) != tuple(ref_shifts[fn % N]))
     n_frames = len(segs)
-    return {
+    out = {
         "iters_gap": float(iters_gap),
         # no frame recorded is no frame shown correct
         "segment_frames_off_pct": 100.0 * seg_off / n_frames if n_frames else 100.0,
@@ -94,6 +107,27 @@ def numbers(program: dict, reference: dict) -> Dict[str, float]:
         "unmatched_events_pct": 100.0 * unmatched / n_ref,
         "totals_gap_pct": 100.0 * totals / n_ref,
     }
+    if program.get("logits") is not None:
+        out.update(_classified(program["logits"], reference["logits"], n_frames))
+    return out
+
+
+def _classified(mine: dict, ref_logits: list, n_frames: int) -> Dict[str, float]:
+    """logit_gap and keep_off_pct of the program's {(frame, index): logits}
+    against the reference's per clip frame lists."""
+    N = len(ref_logits)
+    theirs = {(fn, i): lg for fn in range(n_frames) for i, lg in enumerate(ref_logits[fn % N])
+              if lg is not None}
+    gap, off = 0.0, 0
+    for key in mine.keys() | theirs.keys():
+        a, b = mine.get(key), theirs.get(key)
+        if a is None or b is None:
+            off += 1
+            continue
+        gap = max(gap, float(np.max(np.abs(np.asarray(a, np.float64) - b))))
+        off += int(np.argmax(a)) != int(np.argmax(b))
+    n = len(mine.keys() | theirs.keys())
+    return {"logit_gap": gap, "keep_off_pct": 100.0 * off / n if n else 0.0}
 
 
 def judge(values: Dict[str, float], limits: Dict[str, float]):

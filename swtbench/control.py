@@ -10,8 +10,12 @@ its stream (a whole number of batches):
                it) held to the float64 reference: the lower readings;
   --controls   the reference itself put in the program's place, computed
                one precision step below what the configuration states
-               (TF32 products, swtbench/reference/ialm.py), held to the
-               float64 reference: the upper readings.
+               (TF32 products, swtbench/reference/ialm.py; with a segment
+               filter its convolutions too, swtbench/reference/classify.py),
+               held to the float64 reference: the upper readings; with a
+               filter also "tf32_conv", the float64 reference's own crops
+               through TF32 convolutions, which moves nothing but the
+               logits: the upper reading of logit_gap.
 
 One JSON line a reading on standard output: {"seed", "side", "numbers"}.
 The benchmark's own runs never run this.
@@ -31,35 +35,62 @@ def readings(cell, seeds, frames, program, controls, device, shrink=None):
     from . import compare, traffic
     from .probe import Probe
     from .reference import run_reference
-    from .run import cell_inputs, program_config, program_results
+    from .reference.pipeline import classify_segments
+    from .run import (cell_inputs, crop_rows, filter_weights, program_config,
+                      program_results, segment_filter)
     from .source import StreamSource
 
     p, (H, W), corners, params, crop = cell_inputs(cell, shrink)
     T = int(p["window_size"])
     frames = frames - frames % (T * int(p["batch_windows"]))
     device = torch.device(device)
+    weights = filter_weights(cell.config)
     for seed in seeds:
-        clip = traffic.generate(params, seed, H, W, crop)
-        ref = run_reference(clip.first_frame, clip.crops, corners, p, frames, device)
+        clip = traffic.generate(params, seed, H, W, crop, keep_bgr=weights is not None)
+        whole = None if weights is None else traffic.full_frames(clip)
+        ref = run_reference(clip.first_frame, clip.crops, corners, p, frames, device,
+                            frames=whole, weights=weights)
         if program:
             from swiftwatcher_tpu_torch.pipeline.runner import run_video
 
             B = int(p["batch_windows"])
-            with Probe(device, frames // (B * T) + 1, B, T) as probe:
-                res = run_video(StreamSource(clip, frames), corners, program_config(p), device,
-                                tracker_impl=cell.config["tracker_impl"])
+            cfg = program_config(p)
+            seg_filter = segment_filter(weights, cfg, device)
+            with Probe(device, frames // (B * T) + 1, B, T,
+                       crop_rows(cell.config, cfg) if seg_filter else 0) as probe:
+                res = run_video(StreamSource(clip, frames, whole), corners, cfg, device,
+                                tracker_impl=cell.config["tracker_impl"],
+                                segment_filter=seg_filter)
             yield {"seed": seed, "side": "program",
                    "numbers": compare.numbers(program_results(res, probe, frames), ref)}
-            del res, probe
+            del res, probe, seg_filter
         for precision in controls:
             ctl = run_reference(clip.first_frame, clip.crops, corners, p, frames, device,
-                                precision=precision)
-            U, N = len(ctl["iters"]), len(ctl["segments"])
-            ctl["iters"] = [ctl["iters"][k % U] for k in range(frames // T)]
-            ctl["segments"] = [ctl["segments"][fn % N] for fn in range(frames)]
-            if ctl["shifts"] is not None:
-                ctl["shifts"] = ctl["shifts"][[fn % N for fn in range(frames)]]
-            yield {"seed": seed, "side": precision, "numbers": compare.numbers(ctl, ref)}
+                                precision=precision, frames=whole, weights=weights)
+            yield {"seed": seed, "side": precision,
+                   "numbers": compare.numbers(_over_stream(ctl, frames, T), ref)}
+            if weights is not None and precision == "tf32":
+                # the convolutions alone one step down, on the float64
+                # reference's own crops: the upper reading of logit_gap
+                conv, _ = classify_segments(whole, ref["boxes"], crop[0], p, device, weights,
+                                            precision)
+                same = _over_stream(dict(ref, logits=conv), frames, T)
+                yield {"seed": seed, "side": "tf32_conv", "numbers": compare.numbers(same, ref)}
+
+
+def _over_stream(result: dict, frames: int, T: int) -> dict:
+    """A reference result, per window and frame of the clip, as the
+    program's: per window and frame of the stream's first `frames` frames,
+    logits per (frame, index) of a crop."""
+    U, N = len(result["iters"]), len(result["segments"])
+    out = dict(result, iters=[result["iters"][k % U] for k in range(frames // T)],
+               segments=[result["segments"][fn % N] for fn in range(frames)])
+    if result["shifts"] is not None:
+        out["shifts"] = result["shifts"][[fn % N for fn in range(frames)]]
+    if result["logits"] is not None:
+        out["logits"] = {(fn, i): lg for fn in range(frames)
+                         for i, lg in enumerate(result["logits"][fn % N]) if lg is not None}
+    return out
 
 
 def main(argv=None) -> int:

@@ -9,7 +9,7 @@
                          THRESH_TOZERO, grey opening
   components             image_filtering.py:329: cv2.connectedComponents,
                          labels cast to uint8
-  centroids              regionprops order: ascending label value
+  centroids, boxes       regionprops order: ascending label value
 """
 
 from __future__ import annotations
@@ -97,18 +97,31 @@ def motion(windows: torch.Tensor, p: dict, precision: str = "float64", chunk: in
     return out, iters
 
 
-def segments(frame_motion: np.ndarray, p: dict) -> List[Tuple[float, float]]:
-    """One frame's segment centroids (row, col), ascending by label."""
+def segments(frame_motion: np.ndarray, p: dict, boxes: bool = False):
+    """One frame's segment centroids (row, col), ascending by label; with
+    `boxes`, (centroids, bounding boxes [y1, x1, y2, x2], bottom and right
+    exclusive, as regionprops gives them)."""
     f = cv2.bilateralFilter(frame_motion, int(p["bilateral_d"]), float(p["bilateral_sigma_color"]),
                             float(p["bilateral_sigma_space"]))
     _, f = cv2.threshold(f, int(p["motion_threshold"]), 255, cv2.THRESH_TOZERO)
     f = ndimage.grey_opening(f, size=tuple(p["opening_size"]))
     if not f.any():
-        return []
+        return ([], []) if boxes else []
     _, lbl = cv2.connectedComponents(f)
     lbl = (lbl % int(p["label_modulus"])).astype(np.int64).ravel()
     area = np.bincount(lbl, minlength=256)
     ys, xs = np.divmod(np.arange(lbl.size), f.shape[1])
     sum_y = np.bincount(lbl, weights=ys, minlength=256)
     sum_x = np.bincount(lbl, weights=xs, minlength=256)
-    return [(sum_y[k] / area[k], sum_x[k] / area[k]) for k in np.flatnonzero(area[1:]) + 1]
+    ks = np.flatnonzero(area[1:]) + 1
+    centroids = [(sum_y[k] / area[k], sum_x[k] / area[k]) for k in ks]
+    if not boxes:
+        return centroids
+    fg = np.flatnonzero(lbl)
+    y0, x0 = np.full(256, lbl.size), np.full(256, lbl.size)
+    y1, x1 = np.full(256, -1), np.full(256, -1)
+    np.minimum.at(y0, lbl[fg], ys[fg])
+    np.minimum.at(x0, lbl[fg], xs[fg])
+    np.maximum.at(y1, lbl[fg], ys[fg])
+    np.maximum.at(x1, lbl[fg], xs[fg])
+    return centroids, [[int(y0[k]), int(x0[k]), int(y1[k]) + 1, int(x1[k]) + 1] for k in ks]

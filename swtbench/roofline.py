@@ -60,3 +60,44 @@ def localize_batch(B: int, T: int, P: int, trips: float, cfg, stabilize: bool) -
     tb, to = ialm_trip(T, P, *solver_bytes(cfg))
     planes = sum(frame_plane_bytes(P, stabilize).values())
     return B * trips * tb + B * T * planes, B * trips * to
+
+
+# SqueezeNet 1.0 (Iandola et al., arXiv:1602.07360, torchvision
+# squeezenet1_0): (squeeze, expand 1x1, expand 3x3) of the fire modules
+# between the stem's pool and the head, None a max pool (3, stride 2, ceil)
+SQUEEZENET_1_0 = ((16, 64, 64), (16, 64, 64), (32, 128, 128), None, (32, 128, 128),
+                  (48, 192, 192), (48, 192, 192), (64, 256, 256), None, (64, 256, 256))
+
+
+def squeezenet_forward(n_crops: int, input_size: int, classes: int = 2) -> tuple:
+    """(bytes, operations) of SqueezeNet 1.0's forward over n_crops
+    float32 inputs of input_size squared: the input read and the logits
+    written once, the weights and biases read once; 2 operations a
+    multiply-add of every convolution (the stem's 7x7/2, each fire
+    module's three, the head's 1x1 to `classes`).  Pools, ReLUs and the
+    average are left out: their operations are not 1% of these."""
+    def pool(x):
+        return -(-(x - 3) // 2) + 1
+
+    macs = params = 0
+
+    def conv(side, cin, cout, k):
+        nonlocal macs, params
+        macs += side * side * cout * cin * k * k
+        params += cout * cin * k * k + cout
+
+    side = (input_size - 7) // 2 + 1
+    conv(side, 3, 96, 7)
+    side, cin = pool(side), 96
+    for fire in SQUEEZENET_1_0:
+        if fire is None:
+            side = pool(side)
+            continue
+        s, e1, e3 = fire
+        conv(side, cin, s, 1)
+        conv(side, s, e1, 1)
+        conv(side, s, e3, 3)
+        cin = e1 + e3
+    conv(side, cin, classes, 1)
+    n_bytes = 4 * (n_crops * (3 * input_size * input_size + classes) + params)
+    return n_bytes, 2 * macs * n_crops

@@ -126,7 +126,34 @@ def program_results(res, probe, n_frames: int) -> dict:
     segments, shifts = probe.frames(n_frames)
     return {"events": [(e.first_centroid, e.last_centroid, e.frame_number) for e in res.events],
             "predicted": res.total_predicted, "rejected": res.total_rejected,
-            "iters": list(res.ialm_iters), "segments": segments, "shifts": shifts}
+            "iters": list(res.ialm_iters), "segments": segments, "shifts": shifts,
+            "logits": probe.segment_logits(n_frames)}
+
+
+def filter_weights(conf: dict):
+    """The .npz of the configuration's segment filter, or None without one."""
+    sf = conf.get("segment_filter")
+    if sf is None:
+        return None
+    if sf.get("kind") != "squeezenet":
+        raise ValueError(f"unknown segment filter {sf!r}")
+    return spec.ROOT / sf["weights"]
+
+
+def segment_filter(weights, cfg, device):
+    """The port's SqueezeNet segment filter of `weights`, or None."""
+    if weights is None:
+        return None
+    from swiftwatcher_tpu_torch.models.classifier import SqueezeNetSegmentFilter
+
+    return SqueezeNetSegmentFilter.from_weights(weights, cfg, device)
+
+
+def crop_rows(conf: dict, cfg) -> int:
+    """Crops a batch can classify at most: every tracked slot (the device
+    tracker's max_tracks, the host tracker's 255 labels) of every frame."""
+    K = cfg.max_tracks if conf["tracker_impl"] == "device" else 255
+    return cfg.batch_windows * cfg.window_size * K
 
 
 def probe_slots(seconds: float) -> int:
@@ -166,16 +193,22 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     B, T = int(p["batch_windows"]), int(p["window_size"])
     tracker = conf["tracker_impl"]
 
-    clip = traffic.generate(params, seed, H, W, crop)
+    weights = filter_weights(conf)
+    clip = traffic.generate(params, seed, H, W, crop, keep_bgr=weights is not None)
+    # a segment filter crops from whole frames: the stream serves them
+    frames = None if weights is None else traffic.full_frames(clip)
     h, w = clip.crops.shape[1:]
     if not shrink and [h, w] != [conf["crop"]["height"], conf["crop"]["width"]]:
         raise ValueError(f"the crop is {h} x {w}, the configuration says {conf['crop']}")
 
     t_traffic = time.perf_counter()
-    probe = Probe(device, probe_slots(seconds), B, T)
+    seg_filter = segment_filter(weights, cfg, device)
+    probe = Probe(device, probe_slots(seconds), B, T,
+                  crop_rows(conf, cfg) if seg_filter else 0)
     with probe:
         # warm-up: two batches on the cell's shapes, through the probe too
-        run_video(StreamSource(clip, 2 * B * T), corners, cfg, device, tracker_impl=tracker)
+        run_video(StreamSource(clip, 2 * B * T, frames), corners, cfg, device,
+                  tracker_impl=tracker, segment_filter=seg_filter)
         tracer = Tracer(device) if trace else None
         if tracer:
             tracer.warm()
@@ -185,16 +218,16 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         probe.reset()
         t_warm = time.perf_counter()
 
-        source = StreamSource(clip, STREAM_CAP_FRAMES)
+        source = StreamSource(clip, STREAM_CAP_FRAMES, frames)
         # one mark a completed batch: (time, frames, stage seconds, CPU
-        # seconds, slow-path frames)
+        # seconds, slow-path frames, span counts)
         marks = []
         half = []
 
-        def status(frames, _total):
+        def status(done, _total):
             now = time.perf_counter()
-            marks.append((now, frames, dict(probe.metrics.stage_seconds), _cpu_s(),
-                          _slow_path_frames()))
+            marks.append((now, done, dict(probe.metrics.stage_seconds), _cpu_s(),
+                          _slow_path_frames(), dict(probe.metrics.counters)))
             if len(marks) == 1:
                 source.deadline = now + seconds
             elif tracer and tracer.prof is None and now >= source.deadline - seconds / 2:
@@ -203,7 +236,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
             elif tracer and now >= source.deadline:
                 tracer.stop()
 
-        res = run_video(source, corners, cfg, device, tracker_impl=tracker, status_cb=status)
+        res = run_video(source, corners, cfg, device, tracker_impl=tracker, status_cb=status,
+                        segment_filter=seg_filter)
     if tracer:
         tracer.stop()
     if len(marks) < 2 or marks[1][0] > source.deadline:
@@ -211,12 +245,16 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     close = max(i for i, m in enumerate(marks) if m[0] <= source.deadline)
     host = min(half[0], close) if half else close
     gaps = sorted(b[0] - a[0] for a, b in zip(marks[:close], marks[1:close + 1]))
-    t_open, f_open, st_open, cpu_open, slow_open = marks[0]
-    t_host, f_host, st_host, cpu_host, slow_host = marks[host]
+    t_open, f_open, st_open, cpu_open, slow_open, n_open = marks[0]
+    t_host, f_host, st_host, cpu_host, slow_host, n_host = marks[host]
     iters = list(res.ialm_iters)
     # batch j holds windows j*B to j*B + B - 1; the batches dispatched
     # while the profiler ran are those after the next one in flight
     traced = iters[(host + 2) * B:(close + 3) * B] if half else []
+    # batch j's crops are classified as it is consumed, before mark j:
+    # the profiler saw the consumes after mark `host` up to the one after
+    # mark `close`
+    crops = [probe.crops.get(j, 0) for j in range(len(marks) + 1)]
 
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     record = spec.RunRecord(
@@ -228,11 +266,15 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         slow_path_frames=None if slow_open is None else slow_host - slow_open,
         ialm_iters=iters[B:(host + 1) * B], traced_iters=traced,
         windows_per_batch=B, window_frames=T, crop_hw=(h, w),
-        stabilize=int(p["stabilize_max_shift"]) > 0, cfg=cfg)
+        stabilize=int(p["stabilize_max_shift"]) > 0, cfg=cfg,
+        counters={k: v - n_open.get(k, 0) for k, v in n_host.items()},
+        crops=sum(crops[1:host + 1]) if seg_filter else None,
+        traced_crops=sum(crops[host + 1:close + 2]) if seg_filter and half else None)
     served, read_errors = source.next_frame_number, source.read_errors
     processed = res.frames_processed
     program = program_results(res, probe, source.frames_read)
-    del res, source, probe
+    by_path = probe.crops_by_path if seg_filter else None
+    del res, source, probe, seg_filter
     t_sum = time.perf_counter()
     summary = tracer.summary() if tracer else None
     trace_note = (f"trace stop_s {tracer.stop_s} read_s {time.perf_counter() - t_sum}"
@@ -244,9 +286,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    reference = run_reference(clip.first_frame, clip.crops, corners, p, served, device)
+    reference = run_reference(clip.first_frame, clip.crops, corners, p, served, device,
+                              frames=frames, weights=weights)
     ref_s = time.perf_counter() - t_ref
     failed = served - processed + read_errors
+    crop_note = (f"classify crops in the call by path {by_path} compared {len(program['logits'])} "
+                 f"host part {record.crops} traced {record.traced_crops}; most segments in a "
+                 f"frame (reference) {max(map(len, reference['segments']))}"
+                 if by_path else None)
     values = dict(compare.numbers(program, reference), frames_not_processed=float(failed))
     correct, checks = compare.judge(values, {**cell.limits, "frames_not_processed": 0.0})
 
@@ -279,6 +326,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         f"iters program mean {float(np.mean(program['iters']))} reference "
         f"{list(map(int, reference['iters']))}",
         "numbers " + json.dumps(values),
+    ] + ([crop_note] if crop_note else []) + [
         f"batch seconds in the window: min {gaps[0]} median {gaps[len(gaps) // 2]} "
         f"max {gaps[-1]}; cores {sorted(os.sched_getaffinity(0))}; {trace_note}",
     ] + [f"check {k} {c['value']} limit {c['limit']}" for k, c in checks.items()]

@@ -102,3 +102,9 @@ class RunRecord:
     stabilize: bool
     cfg: object                 # the program's resolved configuration
     trace: object = None        # trace.TraceSummary of the traced part (--trace 1)
+    # RunMetrics.counters over the host part: how many times each span ran
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # crops the segment filter classified in the host part's batches, and
+    # in the batches it classified while traced (None without a filter)
+    crops: Optional[int] = None
+    traced_crops: Optional[int] = None

@@ -15,7 +15,9 @@ The scenes follow the port's io/synthetic.py (make_video, make_hard_video),
 copied here so that a later change to the program cannot change the
 yardstick.  Only the chimney crop of each frame is drawn, plus the whole
 first frame (the ROI mask and the stabilisation's pose are taken from it);
-the crop of the first frame is taken from that whole frame.  The noise is
+the crop of the first frame is taken from that whole frame.  Where a
+segment filter needs whole frames, the BGR crops are kept as drawn and
+`full_frames` pastes each into the first frame.  The noise is
 drawn over the crop alone, so the frames are not byte-equal to the port's
 generators' for the same seed.
 """
@@ -23,7 +25,7 @@ generators' for the same seed.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -48,12 +50,14 @@ def scene_corners(H: int, W: int) -> Region:
 
 @dataclasses.dataclass
 class Clip:
-    """The base clip: the whole first frame and every frame's gray crop."""
+    """The base clip: the whole first frame and every frame's gray crop
+    and, when asked for, its BGR crop."""
 
     first_frame: np.ndarray   # (H, W, 3) uint8 BGR
     crops: np.ndarray         # (N, h, w) uint8 gray crops of `crop`
     crop: Region
     fps: float
+    bgr: Optional[np.ndarray] = None  # (N, h, w, 3) uint8 BGR crops of `crop`
 
 
 def _video_paths(n_frames, H, W, n_entering=2, n_crossing=1, n_vanishing=0, dot=4):
@@ -153,8 +157,10 @@ def _subtract(world, r0, c0, y0, y1, x0, x1, value):
         world[ya:yb, xa:xb] -= value
 
 
-def _block(rng, n_frames, H, W, crop, params, first_whole):
-    """One block: (its whole first frame or None, (n, h, w) gray crops)."""
+def _block(rng, n_frames, H, W, crop, params, first_whole, keep_bgr=False):
+    """One block: (its whole first frame or None, (n, h, w) gray crops,
+    (n, h, w, 3) BGR crops or None).  Keeping the BGR crops draws nothing
+    more."""
     scene = params.get("scene", "video")
     actors = dict(params.get("actors", {}))
     J = max(int(actors.pop("jitter", 0)), 0) if scene == "hard" else 0
@@ -198,6 +204,7 @@ def _block(rng, n_frames, H, W, crop, params, first_whole):
                                dtype=np.int16)
     whole = None
     gray = np.empty((n_frames, h, w), np.uint8)
+    bgr = np.empty((n_frames, h, w, 3), np.uint8) if keep_bgr else None
     gain = 1.0
     occ_y0 = J + top - int(H * 0.10)
     for t in range(n_frames):
@@ -247,8 +254,11 @@ def _block(rng, n_frames, H, W, crop, params, first_whole):
             cam = frame[y1:y2, x1:x2].astype(np.int32)
         else:
             cam = np.clip(world[J + dy:J + dy + h, J + dx:J + dx + w], 0, 255)
-        gray[t] = gray_of_bgr(_close_pass(cam, t, crop, params.get("close_pass")))
-    return whole, gray
+        cam = _close_pass(cam, t, crop, params.get("close_pass"))
+        gray[t] = gray_of_bgr(cam)
+        if bgr is not None:
+            bgr[t] = cam
+    return whole, gray, bgr
 
 
 def _close_pass(cam: np.ndarray, t: int, crop: Region, cp) -> np.ndarray:
@@ -265,18 +275,35 @@ def _close_pass(cam: np.ndarray, t: int, crop: Region, cp) -> np.ndarray:
     return np.clip(out, 0, 255)
 
 
-def generate(params: dict, seed: int, H: int, W: int, crop: Region) -> Clip:
+def generate(params: dict, seed: int, H: int, W: int, crop: Region,
+             keep_bgr: bool = False) -> Clip:
     """The base clip of the traffic `params` for `seed` at H x W, with the
-    gray crops of region `crop`."""
+    gray crops of region `crop` and, with `keep_bgr`, their BGR crops (the
+    same draws: the gray crops do not change)."""
     n = int(params["block_frames"])
     blocks = int(params["blocks"])
     key = int(seed) & (2**64 - 1)
-    first, crops = None, []
+    first, crops, bgrs = None, [], []
     for b in range(blocks):
         rng = np.random.default_rng([key, b])
-        whole, gray = _block(rng, n, H, W, crop, params, first_whole=b == 0)
+        whole, gray, bgr = _block(rng, n, H, W, crop, params, b == 0, keep_bgr)
         if b == 0:
             first = whole
         crops.append(gray)
+        bgrs.append(bgr)
     return Clip(first_frame=first, crops=np.concatenate(crops), crop=crop,
-                fps=float(params.get("fps", 30.0)))
+                fps=float(params.get("fps", 30.0)),
+                bgr=np.concatenate(bgrs) if keep_bgr else None)
+
+
+def full_frames(clip: Clip) -> np.ndarray:
+    """(N, H, W, 3) uint8: each frame of the base clip whole, its BGR crop
+    pasted into the first frame at the crop region.  Outside the crop every
+    frame shows the first frame's world, which is all that reaches past the
+    crop: a classifier's box expanded at a segment near the crop's edge."""
+    (x1, y1), (x2, y2) = clip.crop
+    out = np.empty((len(clip.bgr), *clip.first_frame.shape), np.uint8)
+    for f, bgr in zip(out, clip.bgr):
+        f[...] = clip.first_frame
+        f[y1:y2, x1:x2] = bgr
+    return out
