@@ -1,17 +1,21 @@
-"""ctypes bindings of the native frame pump (native/framepump.cpp) and of
-the wire codec's encoders (csrc/wire_encode.cpp).
+"""ctypes bindings of the native frame pump (native/framepump.cpp), of the
+wire codec's encoders (csrc/wire_encode.cpp) and of the frames mode's gray
+crop (csrc/gray_crop.cpp).
 
 The port's copy of swiftwatcher_tpu/io/native.py.  The libraries are built
 by g++ at first use into build/native/
 (swiftwatcher_tpu_torch/build.py:load_native).  The frame pump links
 libjpeg, and its entry points are gated by `is_available()`: without g++ or
 libjpeg the callers take the cv2 or numpy paths, which give the same bytes.
-The encoders are a library of their own that needs no libjpeg (a host
-without it still has them), gated by `has_symbol()`; without g++ the
-numpy encoders of io/wirecodec.py give the same bytes.
+The encoders and the gray crop are libraries of their own that need no
+libjpeg (a host without it still has them), gated by `has_symbol()`;
+without g++ the numpy encoders of io/wirecodec.py and ops/color.py's
+bgr_to_gray_host give the same bytes.
 
-  * gray_crop_batch / gray_crop_frames: BGR -> the shift-15 grayscale crop,
-    bit-equal to ops/color.py:bgr_to_gray_host, off the GIL;
+  * gray_crop_batch (frame pump) / gray_crop_frames (gray crop library):
+    BGR -> the shift-15 grayscale crop, bit-equal to
+    ops/color.py:bgr_to_gray_host, off the GIL; gray_crop_frames takes a
+    window of frames where each lies and crops them in threads;
   * decode_jpeg_bgr and decode_window_gray: libjpeg decode (of HDF5
     frames), the latter straight to gray crops;
   * AVIReader: MJPG-in-AVI through the first-party container parser;
@@ -80,10 +84,21 @@ def _load_wire() -> Optional[ctypes.CDLL]:
     return build.load_native("wire_encode", ("-lpthread",), _bind_wire)
 
 
+def _bind_gray(lib: ctypes.CDLL) -> None:
+    lib.swt_gray_crop_frames.argtypes = [ctypes.POINTER(_U8P), ctypes.POINTER(_I64), _INT,
+                                         _INT, _INT, _INT, _INT, _U8P, _INT]
+    lib.swt_gray_crop_frames.restype = None
+
+
+def _load_gray() -> Optional[ctypes.CDLL]:
+    return build.load_native("gray_crop", ("-lpthread",), _bind_gray)
+
+
 def has_symbol(name: str) -> bool:
-    """True when the wire encoders' library is built here and exports
-    `name` (swt_encode_delta4, swt_encode_delta6)."""
-    lib = _load_wire()
+    """True when the library that needs no libjpeg and holds `name` is
+    built here and exports it: the wire encoders' (swt_encode_delta4,
+    swt_encode_delta6) or the gray crop's (swt_gray_crop_frames)."""
+    lib = (_load_gray if name.startswith("swt_gray_") else _load_wire)()
     return lib is not None and getattr(lib, name, None) is not None
 
 
@@ -171,11 +186,27 @@ def gray_crop_batch(frames: np.ndarray, crop_region, n_threads: int = 4,
     return out
 
 
-def gray_crop_frames(frames: Sequence[np.ndarray], crop_region, out: np.ndarray) -> np.ndarray:
-    """gray_crop_batch over a list of (H, W, 3) frames, each cropped where
-    it lies (no stacked copy of the BGR crops), into `out`."""
-    for t, f in enumerate(frames):
-        gray_crop_batch(f[None], crop_region, n_threads=1, out=out[t : t + 1])
+def gray_crop_frames(frames: Sequence[np.ndarray], crop_region, out: np.ndarray,
+                     n_threads: int = 4) -> np.ndarray:
+    """A list of (H, W, 3) uint8 BGR frames -> their (N, y2-y1, x2-x1)
+    gray crops in `out`, each frame cropped where it lies (no stacked copy
+    of the BGR crops), the frames split over `n_threads` threads.  The
+    crop must lie inside every frame; the result is gray_crop_batch's."""
+    lib = _load_gray()
+    if lib is None:
+        raise RuntimeError("the gray crop library is not available (g++ missing)")
+    (x1, y1), (x2, y2) = crop_region
+    out = _out((len(frames), y2 - y1, x2 - x1), out)
+    # a frame whose pixels are not packed B, G, R in rows is copied so
+    keep = [f if f.dtype == np.uint8 and f.ndim == 3 and f.strides[1:] == (3, 1)
+            else np.ascontiguousarray(f, np.uint8) for f in frames]
+    for f in keep:
+        if f.ndim != 3 or f.shape[2] != 3 or not (0 <= y1 < y2 <= f.shape[0]
+                                                 and 0 <= x1 < x2 <= f.shape[1]):
+            raise ValueError(f"crop {crop_region} outside a {f.shape} frame")
+    ptrs = (_U8P * len(keep))(*(_u8ptr(f) for f in keep))
+    strides = (_I64 * len(keep))(*(f.strides[0] for f in keep))
+    lib.swt_gray_crop_frames(ptrs, strides, len(keep), y1, y2, x1, x2, _u8ptr(out), n_threads)
     return out
 
 

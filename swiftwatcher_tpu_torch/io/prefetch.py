@@ -26,8 +26,10 @@ bytes:
   * gray-crop stream (cfg.av_gray_decode, a container on the av or
     parallel backend where its probes pass): the decoder emits gray crops
     and no full BGR frame (VideoFileSource.enable_gray_crop_stream);
-  * default: the source's BGR frames, cropped and grayed by the native
-    frame pump where it is built, else by numpy.
+  * frames (the default): the source's BGR frames, each window cropped
+    and grayed in threads by csrc/gray_crop.cpp (io/native.py:
+    gray_crop_frames, which needs g++ but no libjpeg), else by numpy,
+    which also takes a crop past a frame's edge.
 
 The first two need no full frame, so they are off when the caller keeps
 the frames (the classifier and the segment export crop from them).
@@ -35,7 +37,8 @@ the frames (the classifier and the segment export crop from them).
 Given the run's metrics (utils/metrics.py), the worker binds them on its
 thread and books each batch's reads into the pinned buffer as a
 `prefetch_read` span and its upload (or encode and put) as a
-`prefetch_upload` span.
+`prefetch_upload` span; in frames mode each window's gray crop is a
+`prefetch_gray_crop` span inside `prefetch_read`.
 """
 
 from __future__ import annotations
@@ -121,6 +124,7 @@ class WindowPrefetcher:
               and hasattr(source, "enable_gray_crop_stream")
               and source.enable_gray_crop_stream(crop_region)):
             self.mode = "gray_stream"
+        self._gray_crop = self.mode == "frames" and native.has_symbol("swt_gray_crop_frames")
         self.codec = cfg.wire_codec if cfg.wire_codec in ("delta4", "delta6") else None
         self.link_bytes_per_s = None
         if cfg.wire_codec == "auto":
@@ -178,18 +182,20 @@ class WindowPrefetcher:
 
     def _frames_window(self, out: Optional[np.ndarray]):
         frames, numbers, stamps = self.source.get_window(self.cfg.window_size)
-        if self._native and all(
-                0 <= self.y1 < self.y2 <= f.shape[0] and 0 <= self.x1 < self.x2 <= f.shape[1]
-                for f in frames):
-            if out is None:
-                out = np.empty((len(frames), self.y2 - self.y1, self.x2 - self.x1), np.uint8)
-            gray = native.gray_crop_frames(frames, self.crop_region, out)
-        else:
-            # python-slice semantics for a crop past the frame's edge
-            gray = bgr_to_gray_host(
-                np.stack([f[self.y1 : self.y2, self.x1 : self.x2, :] for f in frames]))
-            if out is not None:
-                out[...] = gray
+        with span("prefetch_gray_crop"):
+            if self._gray_crop and all(
+                    0 <= self.y1 < self.y2 <= f.shape[0] and 0 <= self.x1 < self.x2 <= f.shape[1]
+                    for f in frames):
+                if out is None:
+                    out = np.empty((len(frames), self.y2 - self.y1, self.x2 - self.x1),
+                                   np.uint8)
+                gray = native.gray_crop_frames(frames, self.crop_region, out)
+            else:
+                # python-slice semantics for a crop past the frame's edge
+                gray = bgr_to_gray_host(
+                    np.stack([f[self.y1 : self.y2, self.x1 : self.x2, :] for f in frames]))
+                if out is not None:
+                    out[...] = gray
         return (frames if self.keep_frames else None), numbers, stamps, gray
 
     def _produce(self):

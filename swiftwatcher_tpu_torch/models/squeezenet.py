@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import pin_numerics
+from ..utils.metrics import span
 
 # (feature index, squeeze, expand1x1, expand3x3) per fire module,
 # torchvision 1.0 layout.
@@ -70,10 +71,13 @@ def forward(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor
 
 
 def predict(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """argmax class per example (segment_classification.py:36), (N,) int64."""
+    """argmax class per example (segment_classification.py:36), (N,) int64.
+    The forward and its argmax are the span `classify_forward`, a range of
+    that name under a profiler, on every classify path."""
     if x.is_cuda:
         pin_numerics()
-    return forward(params, x).argmax(dim=1)
+    with span("classify_forward"):
+        return forward(params, x).argmax(dim=1)
 
 
 def params_from_jax(params: Mapping[str, np.ndarray], device=torch.device("cpu"),

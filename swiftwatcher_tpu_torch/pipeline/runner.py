@@ -33,7 +33,8 @@ one batch_call classifies a batch's segments (a filter without batch_call
 is called per frame).  On the device tracker the compacted valid and bbox
 planes are read back and the crops are packed on the host; then either
 the forward, the keep scatter and the tracking scan are queued on the
-device together (pipeline/classify_fused.py), or, for a crop too large for
+device together (pipeline/classify_fused.py), and the next batch's crops
+are packed while the card runs them, or, for a crop too large for
 a device canvas, with classify_fused=False, with --export or for a filter
 without batch_call, the host's keep-mask is uploaded before the scan.
 `export_segments_dir` (--export, io/segments_export.py) writes each
@@ -211,9 +212,9 @@ def run_video(
     Perfetto), with the host's stages as ranges named as the JAX
     package's annotations (localize_dispatch, track_dispatch, consume,
     classify_pack, classify_track_fused, classify), the run's other spans
-    (prefetch_wait, stabilize, ialm_solve and each blocking read's sync.
-    span; utils/metrics.py) and the kernels' C launchers by their entry
-    names.  Each batch's localisation and
+    (prefetch_wait, stabilize, ialm_solve, classify_forward and each
+    blocking read's sync. span; utils/metrics.py) and the kernels' C
+    launchers by their entry names.  Each batch's localisation and
     tracking scan are also timed on the device and waited for, into the
     manifest's device_stage_seconds ("localize", "track_scan"); so the
     stages no longer overlap, and frames/s drop while profiling.  The
@@ -312,8 +313,9 @@ def run_video(
         """One track_window launch over the batch's compacted tables:
         (event buffer, (B, T) overflow flags, the state after the batch,
         None).  With a segment filter or the export the scan waits for
-        consume, and this returns ("frames", the scan's inputs, the started
-        read-back of the compacted valid and bbox planes)."""
+        consume, and this returns ["frames", the scan's inputs, the started
+        read-back of the compacted valid and bbox planes, None], the None
+        for the batch's host half (frames_host_half) once made."""
         nonlocal dev_state
         B, T = table.valid.shape[:2]
         compacted = compact_tables(table, cfg.max_tracks, with_bbox=needs_frames)
@@ -333,8 +335,8 @@ def run_video(
         overflow = overflow & real
         if needs_frames:
             planes = torch.stack((kvalid.to(torch.int32),) + compacted[4])
-            return ("frames", cy, cx, kvalid, overflow, fns, active,
-                    _start_readback(planes))
+            return ["frames", cy, cx, kvalid, overflow, fns, active,
+                    _start_readback(planes), None]
         with device_stage("track_scan"):
             dev_state, events = track_window(
                 dev_state, roi_dev, cy.reshape(B * T, -1), cx.reshape(B * T, -1),
@@ -344,16 +346,14 @@ def run_video(
         # the batch is consumed pairs it with the batch's cursor
         return events, overflow, dev_state, None
 
-    def frames_on_device(wins, cy, cx, kvalid, overflow, fns, active, readback):
-        """The keep-mask, the export and the tracking scan of one batch on
-        the device tracker: (event buffer, overflow flags, state after,
-        n_kept or None), n_kept being the fused path's kept count on the
-        device."""
-        nonlocal dev_state
+    def frames_host_half(wins, readback):
+        """The host half of one batch with frames kept: (its compacted
+        tables read back, {(b, t): frame} of the frames with a valid slot,
+        the fused path's packed crops or None)."""
         with metrics.span("classify_readback"):
             planes = _finish_readback(readback)
         view = _CompactTableView(planes[0].astype(bool), *planes[1:])
-        B, T, K = view.valid.shape
+        T = view.valid.shape[1]
         frames_by_bt = {(b, t): wins[b][0][t] for b in range(len(wins)) for t in range(T)
                         if view.valid[b, t].any()}
         fused = None
@@ -364,6 +364,17 @@ def run_video(
             with trace_range("classify_pack"):
                 fused = pack_fused(segment_filter, view, frames_by_bt, crop_region,
                                    timers=metrics.stage_seconds)
+        return view, frames_by_bt, fused
+
+    def frames_on_device(wins, cy, cx, kvalid, overflow, fns, active, readback, host_half):
+        """The keep-mask, the export and the tracking scan of one batch on
+        the device tracker: (event buffer, overflow flags, state after,
+        n_kept or None), n_kept being the fused path's kept count on the
+        device.  host_half: frames_host_half's result, if consume made it
+        ahead."""
+        nonlocal dev_state
+        view, frames_by_bt, fused = host_half or frames_host_half(wins, readback)
+        B, T, K = view.valid.shape
         if fused is not None:
             canv, meta, mx = fused
             coeff = segment_filter._coeff_table(mx)
@@ -425,7 +436,7 @@ def run_video(
                 timestamp=fn,
             ))
 
-    def consume(pending):
+    def consume(pending, nxt):
         nonlocal frames_processed
         table, iters, wins, cursor, on_device = pending
         with metrics.span("sync.consume_iters"):
@@ -433,6 +444,11 @@ def run_video(
         if on_device is not None:
             if on_device[0] == "frames":
                 on_device = frames_on_device(wins, *on_device[1:])
+                if nxt is not None and nxt[4] is not None:
+                    # the next batch's host half while the card classifies
+                    # this one: its tables were read back before this
+                    # batch's IALM counts
+                    nxt[4][-1] = frames_host_half(nxt[2], nxt[4][-2])
             events, overflow, state_after, n_kept = on_device
             # a deferred batch is the one before this: drain it first, so
             # that events stay in order
@@ -550,7 +566,7 @@ def run_video(
                     nxt = (table, iters, wins, cursor, on_device)
                 if pending is not None:
                     with metrics.span("consume"):
-                        consume(pending)
+                        consume(pending, nxt)
                     if status_cb is not None:
                         status_cb(frames_processed, source.total_frames)
                 pending = nxt

@@ -288,6 +288,30 @@ def test_events_stay_in_order_after_a_window_without_segments(path):
     assert _events(ours) == _events(theirs)
 
 
+def test_fused_path_packs_the_next_batch_while_the_card_classifies(videos, monkeypatch):
+    """One window a batch: consume queues batch k's forward and then packs
+    batch k+1's crops, before batch k's status callback; the events and
+    kept count stay the unfused path's."""
+    video = videos["seed3"]
+    cfg = dataclasses.replace(DEFAULT_CONFIG, batch_windows=1)
+    segment_filter = _filter("partial")
+    unfused = _run(video, segment_filter, "unfused", cfg)
+    done, packed_at = [], []
+    real = runner_mod.pack_fused
+
+    def pack_fused(*a, **kw):
+        packed_at.append(len(done))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(runner_mod, "pack_fused", pack_fused)
+    fused = _run(video, segment_filter, "fused", cfg, status_cb=lambda *a: done.append(a))
+    assert len(done) == fused.metrics.batches == 6
+    assert packed_at == [0] + list(range(len(packed_at) - 1)) and len(packed_at) >= 3
+    assert fused.metrics.counters["classify_readback"] == fused.metrics.batches
+    assert _events(fused) == _events(unfused) and len(fused.events) > 0
+    assert fused.metrics.segments_total == unfused.metrics.segments_total
+
+
 def _count_scans(monkeypatch):
     """Count the device tracker's track_window calls in the runner."""
     calls = []

@@ -19,6 +19,8 @@ from swiftwatcher_tpu.pipeline.runner import run_video as jax_run_video
 from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG
 from swiftwatcher_tpu_torch.io.source import ArraySource
 from swiftwatcher_tpu_torch.io.synthetic import make_hard_video
+from swiftwatcher_tpu_torch.models import squeezenet
+from swiftwatcher_tpu_torch.models.classifier import SqueezeNetSegmentFilter
 from swiftwatcher_tpu_torch.ops.rpca import rpca_motion_window_batched
 from swiftwatcher_tpu_torch.pipeline.multi import run_videos
 from swiftwatcher_tpu_torch.pipeline.runner import run_video
@@ -113,6 +115,49 @@ def test_runner_spans_count_once_a_batch(profiled):
     assert "stabilize" not in c
     for name in ("prefetch_read", "prefetch_upload", "prefetch_wait"):
         assert name in res.metrics.stage_seconds
+
+
+def test_a_run_without_a_filter_has_no_classify_forward(profiled):
+    res, names = profiled
+    assert "classify_forward" not in res.metrics.counters
+    assert "classify_forward" not in names
+
+
+# the segment filter's paths: the tracker and the configuration they take
+FILTER_PATHS = {"fused": ("device", dict(classify_fused=True)),
+                "unfused": ("device", dict(classify_fused=False)),
+                "host_pil": ("device", dict(classify_fused=False, cnn_device_preprocess=False)),
+                "host_tracker": ("host", {})}
+
+
+@pytest.mark.parametrize("path", sorted(FILTER_PATHS))
+def test_classify_forward_counts_once_a_forward(path, tmp_path, monkeypatch):
+    """The forward and its argmax are one classify_forward span and range
+    on every classify path (96-pixel inputs keep the CPU's forwards short)."""
+    impl, kw = FILTER_PATHS[path]
+    forwards = []
+    real = squeezenet.forward
+
+    def forward(params, x):
+        forwards.append(len(x))
+        return real(params, x)
+
+    monkeypatch.setattr(squeezenet, "forward", forward)
+    cfg = _cfg(cnn_input_size=96, **kw)
+    video = make_video(**SCENE)
+    res = run_video(ArraySource(video.frames, fps=video.fps), video.corners, cfg, CPU,
+                    tracker_impl=impl, profile_dir=tmp_path / "prof",
+                    segment_filter=SqueezeNetSegmentFilter.from_default_weights(cfg, CPU))
+    m = res.metrics
+    assert len(forwards) >= m.batches == 2 and sum(forwards) >= m.segments_total > 0
+    assert m.counters["classify_forward"] == len(forwards)
+    # the fused path's range, classify_track_fused, holds its forwards
+    assert ("classify_device" in m.counters) == (path == "fused")
+    assert 0.0 < m.stage_seconds["classify_forward"] <= m.stage_seconds["consume"]
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    ranges = [e for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation" and e.get("name") == "classify_forward"]
+    assert len(ranges) == len(forwards)
 
 
 def test_counters_stay_out_of_the_manifest(profiled):
