@@ -180,11 +180,24 @@ path (`run_video`) end to end:
      where the plain chain's Newton steps lose it too), the eigenvectors
      of separated eigenvalues within a sin of 1e-3 of the plain chain's,
      bit-identical in two launches; the sweeps taken (largest, median);
-     the warm solve with K7 against the plain chain (iterations within 1,
+     the warm solve with K7 (and K8) against the plain chain (the Grams
+     above come from it, with K8 off; iterations within 1,
      motion within 2 u8, one launch a trip and the seed's); K7's time and
      the plain chain's at (16, 21, 21) and (64, 21, 21) beside K7's
      latency bound (its barrier rounds x one round's ns, from the
-     micro-kernel of csrc/k7_latency.cu).
+     micro-kernel of csrc/k7_latency.cu);
+ 20. K8 (csrc/ialm_trip.cu, the warm IALM trip's two kernels) vs
+     ialm_trip_reference at the cells' (64, 21, 93312), u8 X and bf16
+     state, on the states of a warm solve's trips (the second, the middle
+     and the last, captured from the plain chain): E's store bit-equal, C,
+     each window's sum of Z^2 and the bf16 stores of A and Y within
+     ops/ialm_trip.py's tolerances, bit-identical in two runs; frozen
+     windows untouched; the whole solve on K8 against the plain chain
+     (iterations within 1, motion within 2 u8, one K8 trip a loop trip);
+     K8a's and K8b's times beside their byte bound, the trip's (with K7
+     and the T x T work) beside the plain trip's; run_video at a batch of
+     64 windows: ialm_trip.launches equal to its `ialm_trip` spans and to
+     its trips.  `chip_smoke.py --phase 20` runs phases 1, 2 and 20 alone.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -201,8 +214,9 @@ operations it does on this run's inputs over the f32 rate (`bound`); T1 is
 bound by neither but by the latency of its frame chain, which its entry
 gives as `latency_bound_ms` (phase 11), beside `kernels_per_launch` (the
 kernels its launcher counted over the main path's calls, per call); K7 is
-bound by the latency of its barrier rounds (phase 19).  No single PyTorch
-call computes any of K1-K7 or T1, so `library_ms` is null.  Exits
+bound by the latency of its barrier rounds (phase 19); K8's `ms` is its
+two kernels' (phase 20).  No single PyTorch call computes any of K1-K8 or
+T1, so `library_ms` is null.  Exits
 nonzero, printing no result, on any failure or when no CUDA device exists.
 """
 
@@ -1244,6 +1258,9 @@ def run() -> None:
     t0 = time.perf_counter()
     k7 = phase19(np, torch, dev, cfg, card, gray_dev)
     print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    k8 = phase20(np, torch, dev, cfg, card, bench, ((x1, y1), (x2, y2)))
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # every kernel's bound at the inputs timed above
     hw = H * W
@@ -1257,6 +1274,7 @@ def run() -> None:
         "ialm_front": k6_bound,
         "track_window": t1_bound,
         "refined_eigh": (k7["latency_bound_ms"], "latency"),
+        "ialm_trip": (k8["bytes_bound_ms"], "bytes"),
     }
     kernels = [
         {"name": "fused_motion_filter", "route": "cuda",
@@ -1296,6 +1314,7 @@ def run() -> None:
         "kernels_per_launch": t1_kernels / dev_launches["track_window"],
         "latency_bound_ms": t1_latency})
     kernels.append({**k7, "launches": dev_launches["refined_eigh"]})
+    kernels.append(k8)
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
@@ -2722,6 +2741,7 @@ def phase19(np, torch, dev, cfg, card, gray_dev) -> dict:
     K7 against the plain chain; the sweeps; the times.  Returns K7's entry
     for the kernels line."""
     from swiftwatcher_tpu_torch import build
+    from swiftwatcher_tpu_torch.ops import ialm_trip as k8_mod
     from swiftwatcher_tpu_torch.ops import rpca as rpca_mod
     from swiftwatcher_tpu_torch.ops.refined_eigh import (
         MAX_SWEEPS, NEWTON_STEPS, launch_refined_eigh, refined_eigh, refined_eigh_reference)
@@ -2732,11 +2752,15 @@ def phase19(np, torch, dev, cfg, card, gray_dev) -> dict:
         captured.append(G.clone())
         return refined_eigh_reference(G)
 
-    rpca_mod.refined_eigh = recording
+    # the plain chain: the seed's and the trips' refined eigh, and the trips
+    # off K8 (ops/ialm_trip.py)
+    rpca_mod.refined_eigh = k8_mod.refined_eigh = recording
+    rpca_mod.trip_route = lambda *args: False
     try:
         m_plain, it_plain = rpca_mod.rpca_motion_window_batched(gray_dev, cfg)
     finally:
-        rpca_mod.refined_eigh = refined_eigh
+        rpca_mod.refined_eigh = k8_mod.refined_eigh = refined_eigh
+        rpca_mod.trip_route = k8_mod.kernel_route
     B, n = captured[0].shape[0], captured[0].shape[-1]
     print(f"phase 19 K7 input: {len(captured)} Gram batches of {tuple(captured[0].shape)} "
           f"from a warm solve of {tuple(gray_dev.shape)} (IALM iters "
@@ -2793,7 +2817,7 @@ def phase19(np, torch, dev, cfg, card, gray_dev) -> dict:
     k7_calls = refined_eigh.launches - before
     it_diff = int((it_k7 - it_plain).abs().max())
     mot_diff = int((m_k7.int() - m_plain.int()).abs().max())
-    print(f"phase 19 warm RPCA with K7: iters {it_k7.min().item()}..{it_k7.max().item()} "
+    print(f"phase 19 warm RPCA with K7 and K8: iters {it_k7.min().item()}..{it_k7.max().item()} "
           f"(plain {it_plain.min().item()}..{it_plain.max().item()}), iters max |diff| "
           f"{it_diff}, motion max |diff| {mot_diff}, K7 launches {k7_calls} "
           f"(trips + 1 = {int(it_k7.max()) + 1})", flush=True)
@@ -2828,9 +2852,204 @@ def phase19(np, torch, dev, cfg, card, gray_dev) -> dict:
             "sweeps_max": int(solve_sweeps.max()),
             "sweeps_median": float(np.median(solve_sweeps))}
 
+def k8_batch(np, torch, dev, cfg, bench, crop, B: int = 64):
+    """The cells' (B, 21, 216, 432) u8 batch from the 1080p scene: window w
+    starts at frame 21 w + 7 (w // 4), looping over the 63 frames."""
+    (x1, y1), (x2, y2) = crop
+    from swiftwatcher_tpu_torch.ops.color import bgr_to_gray_host
+    T = cfg.window_size
+    n = np.arange(B * T)
+    idx = (n + 7 * (n // (4 * T))) % len(bench.frames)
+    gray = bgr_to_gray_host(bench.frames[idx, y1:y2, x1:x2])
+    return torch.from_numpy(gray.reshape(B, T, *gray.shape[1:])).to(dev)
+
+
+def k8_bytes(X, A) -> int:
+    """Bytes K8a and K8b move together in a trip over X's (B, T, P), A the
+    state: X, A and Y read by each, A, E and Y written by K8b."""
+    n, s = X.numel(), A.element_size()
+    return n * (2 * (X.element_size() + 2 * s) + 3 * s)
+
+
+def phase20(np, torch, dev, cfg, card, bench, crop) -> dict:
+    """K8 (csrc/ialm_trip.cu, the warm trip's two kernels) against
+    ialm_trip_reference on the card at the cells' (64, 21, 93312): on the
+    states of a warm solve's trips captured from the plain chain; frozen
+    windows; the whole solve against the plain chain; the times; and its
+    launches on run_video.  Returns K8's entry for the kernels line."""
+    from swiftwatcher_tpu_torch.ops import ialm_trip as k8
+    from swiftwatcher_tpu_torch.ops import rpca as rpca_mod
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+    from swiftwatcher_tpu_torch.io.source import LoopingArraySource
+
+    gray = k8_batch(np, torch, dev, cfg, bench, crop)
+    B, T, H, W = gray.shape
+    Xs = gray.reshape(B, T, H * W)
+    kw = rpca_mod.ialm_gates_and_kwargs(cfg, torch.float32, dev)
+    lm, rho, cap = kw["lmbda"], kw["rho"], kw["mu_cap"]
+    states = []
+    plain = k8.ialm_trip_reference
+
+    def recording(X, A_s, Y_s, mu, V0, *args):
+        states.append((A_s.clone(), Y_s.clone(), mu.clone(), V0.clone()))
+        return plain(X, A_s, Y_s, mu, V0, *args)
+
+    rpca_mod.trip_route, rpca_mod.ialm_trip_reference = (lambda *a: False), recording
+    try:
+        m_plain, it_plain = rpca_mod.rpca_motion_window_batched(gray, cfg)
+    finally:
+        rpca_mod.trip_route, rpca_mod.ialm_trip_reference = k8.kernel_route, plain
+    torch.cuda.synchronize()
+    check(states[0][0].dtype == torch.bfloat16 and Xs.dtype == torch.uint8,
+          "phase 20: the shipped solve holds X as u8 and its state as bf16")
+    print(f"phase 20 K8 input: {len(states)} trip states of {tuple(Xs.shape)} from a warm "
+          f"solve (IALM iters {it_plain.min().item()}..{it_plain.max().item()})", flush=True)
+
+    def bf16_gap(got, want):
+        """Largest |got - want| of two bf16 tensors over max|want|."""
+        w = want.float()
+        return float((got.float() - w).abs().max() / w.abs().max().clamp(min=1e-30))
+
+    worst = {"c": 0.0, "zz": 0.0, "a": 0.0, "y": 0.0}
+    for k in sorted({1, len(states) // 2, len(states) - 1}):
+        A_s, Y_s, mu, V0 = states[k]
+        Aupd, Eupd, Ynew, _, _, Z = plain(Xs, A_s, Y_s, mu, V0, lm, rho, cap)
+        W1 = V0.transpose(-1, -2) @ (Xs.float() - Eupd + (1.0 / mu)[:, None, None] * Y_s.float())
+        C_plain = W1 @ W1.transpose(-1, -2)
+        zz_plain = (Z * Z).sum(dim=(-2, -1))
+        C = k8.launch_front(Xs, A_s, Y_s, 1.0 / mu, V0, None, lm)
+        C2 = k8.launch_front(Xs, A_s, Y_s, 1.0 / mu, V0, None, lm)
+        runs = []
+        for _ in range(2):
+            A, E, Y = A_s.clone(), torch.zeros_like(A_s), Y_s.clone()
+            _, _, zz = k8.ialm_trip(Xs, A, E, Y, mu, V0, None, lm, rho, cap)
+            runs.append((A, E, Y, zz))
+        torch.cuda.synchronize()
+        A, E, Y, zz = runs[0]
+        check(torch.equal(C, C2) and all(torch.equal(p, q) for p, q in zip(*runs)),
+              f"phase 20 trip {k}: K8 differs between two runs")
+        check(torch.equal(E, Eupd.to(torch.bfloat16)),
+              f"phase 20 trip {k}: K8's E store is not the plain chain's bit for bit")
+        gaps = {"c": float((C - C_plain).abs().max() / C_plain.abs().max()),
+                "zz": float(((zz - zz_plain).abs() / zz_plain).max()),
+                "a": bf16_gap(A, Aupd.to(torch.bfloat16)),
+                "y": bf16_gap(Y, Ynew.to(torch.bfloat16))}
+        for key, v in gaps.items():
+            worst[key] = max(worst[key], v)
+        a_off = int((A != Aupd.to(torch.bfloat16)).sum())
+        print(f"phase 20 trip {k}: E bit-equal; C {gaps['c']:.3g} of max|C| (limit "
+              f"{k8.C_RTOL}), zz {gaps['zz']:.3g} (limit {k8.ZZ_RTOL}); bf16 A {gaps['a']:.3g}, "
+              f"Y {gaps['y']:.3g} of max (limit {k8.STATE_RTOL:.3g}); A stores differing "
+              f"{a_off} of {A.numel()}; bit-identical in two runs", flush=True)
+        check(gaps["c"] <= k8.C_RTOL and gaps["zz"] <= k8.ZZ_RTOL
+              and gaps["a"] <= k8.STATE_RTOL and gaps["y"] <= k8.STATE_RTOL,
+              f"phase 20 trip {k}: K8 against the plain chain {gaps}")
+        # frozen windows: every other window inactive
+        active = torch.arange(B, device=dev) % 2 == 0
+        A2, E2, Y2 = A_s.clone(), torch.zeros_like(A_s), Y_s.clone()
+        E2[1::2] = 7
+        _, _, zz2 = k8.ialm_trip(Xs, A2, E2, Y2, mu, V0, active, lm, rho, cap)
+        torch.cuda.synchronize()
+        check(torch.equal(A2[1::2], A_s[1::2]) and torch.equal(Y2[1::2], Y_s[1::2])
+              and bool((E2[1::2] == 7).all()) and bool((zz2[1::2] == 0).all()),
+              f"phase 20 trip {k}: K8 wrote to a frozen window")
+        check(torch.equal(A2[::2], A[::2]) and torch.equal(E2[::2], E[::2])
+              and torch.equal(Y2[::2], Y[::2]) and torch.equal(zz2[::2], zz[::2]),
+              f"phase 20 trip {k}: K8 on the active windows differs with others frozen")
+    print("phase 20 frozen windows: A, E, Y untouched bit for bit, zz 0; the active ones "
+          "as in the all-active run", flush=True)
+
+    # the whole solve on K8 against the plain chain
+    before = k8.ialm_trip.launches
+    m_k8, it_k8 = rpca_mod.rpca_motion_window_batched(gray, cfg)
+    torch.cuda.synchronize()
+    trips = k8.ialm_trip.launches - before
+    it_diff = int((it_k8 - it_plain).abs().max())
+    mot_diff = int((m_k8.int() - m_plain.int()).abs().max())
+    print(f"phase 20 warm RPCA on K8: iters {it_k8.min().item()}..{it_k8.max().item()} "
+          f"(plain {it_plain.min().item()}..{it_plain.max().item()}), iters max |diff| "
+          f"{it_diff}, motion max |diff| {mot_diff} ({int((m_k8 != m_plain).sum())} px), "
+          f"K8 trips {trips}", flush=True)
+    check(it_diff <= 1, "phase 20: K8 and the plain chain differ by more than 1 iteration")
+    check(mot_diff <= 2, "phase 20: K8 and the plain chain differ by more than 2 u8")
+    check(trips == int(it_k8.max()), "phase 20: want one K8 trip a loop trip")
+
+    # times at a mid-solve state
+    A_s, Y_s, mu, V0 = states[len(states) // 2]
+    inv_mu = 1.0 / mu
+    A, E, Y = A_s.clone(), torch.zeros_like(A_s), Y_s.clone()
+    Q = torch.eye(T, device=dev).expand(B, T, T).contiguous()
+    front_ms = time_ms(torch, lambda: k8.launch_front(Xs, A_s, Y_s, inv_mu, V0, None, lm), 20,
+                       "K8a")
+    back_ms = time_ms(torch, lambda: k8.launch_back(Xs, A, E, Y, inv_mu, mu, V0, Q, None, lm),
+                      20, "K8b")
+    trip_ms, plain_ms = alternate_ms(
+        torch, lambda: plain(Xs, A_s, Y_s, mu, V0, lm, rho, cap),
+        lambda: k8.ialm_trip(Xs, A, E, Y, mu, V0, None, lm, rho, cap), what="the K8 trip")
+    n_bytes = k8_bytes(Xs, A_s)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 20 K8 time at {tuple(Xs.shape)}: K8a {front_ms:.4f} ms, K8b {back_ms:.4f} ms "
+          f"(sum {front_ms + back_ms:.4f}) against {bound_ms:.4f} ms of bytes ({n_bytes} B); the "
+          f"trip with K7 and the T x T work {trip_ms:.4f} ms, the plain trip {plain_ms:.4f} ms "
+          f"[{card}]", flush=True)
+
+    # its launches on run_video at the cells' batch: one a trip, in as many spans
+    cfg64 = dataclasses.replace(cfg, batch_windows=B)
+    before = k8.ialm_trip.launches
+    r = run_video(LoopingArraySource(bench.frames, total=2 * B * T, fps=bench.fps),
+                  bench.corners, cfg64, dev)
+    launches = k8.ialm_trip.launches - before
+    it = list(r.ialm_iters)
+    want = sum(max(it[i:i + B]) for i in range(0, len(it), B))
+    spans = r.metrics.counters.get("ialm_trip", 0)
+    print(f"phase 20 run_video at batch {B}: ialm_trip.launches {launches}, ialm_trip spans "
+          f"{spans}, trips {want} ({r.metrics.batches} batches)", flush=True)
+    check(launches == spans == want > 0,
+          f"phase 20: ialm_trip.launches {launches}, spans {spans}, trips {want}")
+    return {"name": "ialm_trip", "route": "cuda",
+            "source": "swiftwatcher_tpu_torch/csrc/ialm_trip.cu",
+            "replaces": "none: the warm trip of swiftwatcher_tpu/ops/rpca.py, plain XLA",
+            "launches": launches, "max_abs_err": None, "gaps": worst,
+            "ms": front_ms + back_ms, "front_ms": front_ms, "back_ms": back_ms,
+            "trip_ms": trip_ms, "plain_ms": plain_ms, "bytes_bound_ms": bound_ms}
+
+
+def run_phase20() -> None:
+    """Phases 1, 2 and 20 alone (`chip_smoke.py --phase 20`)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device (torch.cuda.is_available() is False)")
+    from swiftwatcher_tpu_torch import build
+    from swiftwatcher_tpu_torch.config import DEFAULT_CONFIG
+    from swiftwatcher_tpu_torch.device import pin_numerics, require_cuda
+    from swiftwatcher_tpu_torch.geometry import crop_region_from_corners
+    from swiftwatcher_tpu_torch.io.synthetic import make_video
+
+    cfg = DEFAULT_CONFIG
+    dev = require_cuda()
+    pin_numerics()
+    card = gpu_line()
+    print(card, flush=True)
+    secs = build.build_all()
+    print(f"phase 2 build: {secs:.2f} s", flush=True)
+    bench = make_video(seed=0, n_frames=63, H=1080, W=1920,
+                       n_entering=2, n_crossing=1, n_vanishing=1)
+    bench.frames = close_pass(np, bench.frames)
+    t0 = time.perf_counter()
+    k8 = phase20(np, torch, dev, cfg, card, bench,
+                 crop_region_from_corners(bench.corners, cfg))
+    print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": [k8]}))
+
+
 def main() -> int:
     try:
-        run()
+        if sys.argv[1:] == ["--phase", "20"]:
+            run_phase20()
+        else:
+            run()
     except (SmokeFailure, ImportError, RuntimeError, ValueError, OSError,
             subprocess.CalledProcessError) as e:
         print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)

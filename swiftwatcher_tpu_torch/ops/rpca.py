@@ -12,9 +12,12 @@ one-sided polish round that restores relative accuracy on the small
 singular values.  The products are `torch.matmul`.
 
 The warm-basis solver (the shipped default) carries the eigenbasis across
-iterations.  The cold-start solver forms each iterate's T x T Gram and takes
-its basis from a fresh eigh; on the card that Gram comes from the fused
-front kernel K6 (ops/ialm_front.py) together with E and M.
+iterations; on a CUDA f32 solve its trips run on the two kernels of K8
+(ops/ialm_trip.py), which update A, E and Y in place, and elsewhere on the
+plain chain `ialm_trip_reference`.  The cold-start solver forms each
+iterate's T x T Gram and takes its basis from a fresh eigh; on the card
+that Gram comes from the fused front kernel K6 (ops/ialm_front.py)
+together with E and M.
 
 Quirks of the reference kept on purpose:
   * the svp length quirk: every iteration keeps all T singular values, so
@@ -28,8 +31,8 @@ The dynamic loop reads `any(active)` back to the host once per iteration,
 in a `sync.ialm_stop` span of the run's metrics (utils/metrics.py); on a
 CUDA f32 solve that is the trip's only read, and K7 runs in an `ialm_eigh`
 span, while elsewhere each `eigh`, which synchronises the card with the
-host, runs in a `sync.ialm_eigh` span.  The solve is the `ialm_solve`
-span.
+host, runs in a `sync.ialm_eigh` span.  A K8 trip is an `ialm_trip` span.
+The solve is the `ialm_solve` span.
 
 Sequence parallelism (parallel/mesh.py): with a `group`, X is one block of
 the pixel axis and the solve runs on every rank of the group together; the
@@ -45,7 +48,9 @@ import torch
 
 from ..config import DEFAULT_CONFIG, PipelineConfig
 from ..utils.metrics import span
-from .ialm_front import front_chain, ialm_front, ialm_front_reference
+from .ialm_front import ialm_front, ialm_front_reference
+from .ialm_trip import finish_trip, ialm_trip, ialm_trip_reference
+from .ialm_trip import kernel_route as trip_route
 from .refined_eigh import refined_eigh
 
 _DTYPES = {
@@ -169,6 +174,9 @@ def ialm_rpca_batched(
     Gram of its iterate M and starts the polish from that Gram's eigh.
     fused_front (cold start only) takes E, M and that Gram from K6, which
     launches on a CUDA f32 solve; otherwise they come from the plain chain.
+    A warm solve runs its trips on K8 wherever ialm_trip.kernel_route
+    takes it (read from X's device, dtype and shape and the storage
+    dtypes), else on the plain chain.
 
     x_store_dtype holds X between uses ('uint8' is lossless for uint8-origin
     windows); store_y_dtype / store_ae_dtype round the loop-carried Y and
@@ -184,8 +192,6 @@ def ialm_rpca_batched(
     sd_x = _DTYPES[x_store_dtype] if x_store_dtype else None
     sd_y = _DTYPES[store_y_dtype] if store_y_dtype else None
     sd_ae = _DTYPES[store_ae_dtype] if store_ae_dtype else None
-    eps = torch.finfo(dtype).eps
-    tiny = torch.finfo(dtype).tiny
 
     def allsum(v):
         return group.sum(v) if group is not None else v
@@ -203,45 +209,43 @@ def ialm_rpca_batched(
     front = ialm_front if fused_front else ialm_front_reference
 
     def update(A_s, Y_s, mu, V):
-        Y = Y_s.to(dtype)
-        Xf = Xs.to(dtype)
         if warm_basis:
-            Eupd, M = front_chain(Xs, A_s, Y_s, 1.0 / mu, lmbda)
-            V0 = V      # last iteration's basis; the polish re-converges it
-        else:
-            Eupd, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
-            _, V0 = refined_eigh(allsum(G))
-        # Row-space SVD from the basis V0 and one polish round:
-        # A = V diag(r) V^T M = [(V diag r) V1^T] (V0^T M) = Q W1.
-        W1 = _t(V0) @ M
-        C = allsum(W1 @ _t(W1))
-        d, V1 = refined_eigh(C)
-        S = torch.sqrt(torch.clamp(d, min=0.0))
-        Vn = V0 @ V1
-        floor = eps * S.amax(dim=-1, keepdim=True) + tiny
-        ratio = (S - (1.0 / mu)[..., None]) / torch.maximum(S, floor)
-        Q = (Vn * ratio[..., None, :]) @ _t(V1)
-        Aupd = Q @ W1
-        Z = Xf - Aupd - Eupd
-        Ynew = Y + mu[..., None, None] * Z
-        mu_new = torch.minimum(mu * rho, mu * mu_cap)
-        return Aupd, Eupd, Ynew, mu_new, Vn, Z
+            return ialm_trip_reference(Xs, A_s, Y_s, mu, V, lmbda, rho, mu_cap, allsum)
+        Eupd, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
+        _, V0 = refined_eigh(allsum(G))
+        return finish_trip(Xs, Y_s, Eupd, M, V0, mu, rho, mu_cap, allsum)
 
     def store(a, sd):
         return a.to(sd) if sd is not None else a
 
     B, T = X.shape[0], X.shape[1]
+    state_dtype = sd_ae if sd_ae is not None else dtype
+    fused_trip = trip_route(X.device, dtype, X.shape, Xs.dtype, state_dtype,
+                            sd_y if sd_y is not None else dtype, warm_basis)
     if warm_basis:
         # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
         M0 = X + (1.0 / mu0)[..., None, None] * Y0
         _, V = refined_eigh(allsum(M0 @ _t(M0)))
     else:
         V = torch.eye(T, dtype=dtype, device=X.device).expand(B, T, T)
-    A = E = torch.zeros_like(X, dtype=sd_ae if sd_ae is not None else dtype)
+    A = torch.zeros_like(X, dtype=state_dtype)
+    # K8 writes A and E in place, so they are two tensors there
+    E = torch.zeros_like(A) if fused_trip else A
     Y = store(Y0, sd_y)
     mu = mu0
+
+    def trip(active):
+        """A fused trip (A, E, Y updated in place where active): (mu_new,
+        Vn, err_new)."""
+        mu_new, Vn, zz = ialm_trip(Xs, A, E, Y, mu, V.contiguous(), active, lmbda, rho,
+                                   mu_cap, allsum)
+        return mu_new, Vn, torch.sqrt(allsum(zz)) / frob
+
     if fixed_iters > 0:
         for _ in range(fixed_iters):
+            if fused_trip:
+                mu, V, _ = trip(None)
+                continue
             Aupd, Eupd, Ynew, mu, V, _ = update(A, Y, mu, V)
             A, E, Y = store(Aupd, sd_ae), store(Eupd, sd_ae), store(Ynew, sd_y)
         iters = torch.full((B,), fixed_iters, dtype=torch.int32, device=X.device)
@@ -255,12 +259,15 @@ def ialm_rpca_batched(
             done = not bool(active.any())
         if done:
             break
-        Aupd, Eupd, Ynew, mu_new, Vn, Z = update(A, Y, mu, V)
-        err_new = torch.sqrt(allsum((Z * Z).sum(dim=(-2, -1)))) / frob
         keep = active[..., None, None]
-        A = torch.where(keep, store(Aupd, sd_ae), A)
-        E = torch.where(keep, store(Eupd, sd_ae), E)
-        Y = torch.where(keep, store(Ynew, sd_y), Y)
+        if fused_trip:
+            mu_new, Vn, err_new = trip(active)
+        else:
+            Aupd, Eupd, Ynew, mu_new, Vn, Z = update(A, Y, mu, V)
+            err_new = torch.sqrt(allsum((Z * Z).sum(dim=(-2, -1)))) / frob
+            A = torch.where(keep, store(Aupd, sd_ae), A)
+            E = torch.where(keep, store(Eupd, sd_ae), E)
+            Y = torch.where(keep, store(Ynew, sd_y), Y)
         mu = torch.where(active, mu_new, mu)
         V = torch.where(keep, Vn, V)
         itr = itr + active.to(torch.int32)

@@ -19,17 +19,19 @@ the file after every scene; exits 1 on any mismatch.
     python tools/torch_rpca_fixed_counts.py --scenes 40 [--fixed-iters 15]
         [--campaign-seed 20260820] [--device cpu] [--out result.json]
 
-With --window-iters it compares the refined eigendecompositions instead,
-on the same scenes with dynamic stopping: each window's IALM iterations
-and each scene's counts under the shipped route (ops/refined_eigh.py: K7
-on a CUDA f32 solve), under the plain chain in its place
-(`refined_eigh_reference`, the solver as it was before K7) and under the
-f64 solver (`rpca_dtype=float64`, which takes the plain chain), so the
-spread between two f32 routes can be read beside the spread between f32
-and f64.  Windows are split into full ones and the partial last window of
-a scene whose frames are not a multiple of the window; a mismatch is a
-scene whose shipped counts differ from the plain chain's or with a window
-whose iterations differ from the plain chain's by more than 1.
+With --window-iters it compares the solver's routes instead, on the same
+scenes with dynamic stopping: each window's IALM iterations and each
+scene's counts under the shipped route (on a CUDA f32 solve, K7 for each
+refined eigh, ops/refined_eigh.py, and the warm trips on K8,
+ops/ialm_trip.py), under the plain chain in their place
+(`refined_eigh_reference` and `ialm_trip_reference`, the solver as it was
+before K7 and K8) and under the f64 solver (`rpca_dtype=float64`, which
+takes the plain chain), so the spread between two f32 routes can be read
+beside the spread between f32 and f64.  Windows are split into full ones
+and the partial last window of a scene whose frames are not a multiple of
+the window; a mismatch is a scene whose shipped counts differ from the
+plain chain's or with a window whose iterations differ from the plain
+chain's by more than 1.
 
 Runs on the card unless --device says otherwise.
 """
@@ -125,7 +127,7 @@ def window_iters_campaign(scenes: int, campaign_seed: int = 20260820, out: str |
     for the shipped and the f64 solve, full and partial windows apart."""
     from torch_parity_fuzz import _counts, scene_params
 
-    from swiftwatcher_tpu_torch.ops import rpca
+    from swiftwatcher_tpu_torch.ops import ialm_trip, rpca
     from swiftwatcher_tpu_torch.ops.refined_eigh import refined_eigh_reference
 
     rng = np.random.default_rng(campaign_seed)
@@ -147,8 +149,8 @@ def window_iters_campaign(scenes: int, campaign_seed: int = 20260820, out: str |
             windows_by_gap={k: dict(sorted(v.items())) for k, v in gaps.items()},
             note=(
                 "the port's run_video with dynamic IALM: per-window iterations and counts "
-                "under the shipped refined eigh, the plain chain (refined_eigh_reference) "
-                "and the f64 solver; windows_by_gap counts windows by |iterations - the "
+                "under the shipped route (K7, K8), the plain chain (refined_eigh_reference, "
+                "ialm_trip_reference) and the f64 solver; windows_by_gap counts windows by |iterations - the "
                 "plain chain's|.  A mismatch: shipped counts differ from the plain "
                 "chain's, or a window's iterations by more than 1.  Scene stream: "
                 "tools/torch_parity_fuzz.py's generator and campaign seed."
@@ -166,12 +168,13 @@ def window_iters_campaign(scenes: int, campaign_seed: int = 20260820, out: str |
                              device, tracker_impl=tracker)
 
         res = {"shipped": run(DEFAULT_CONFIG), "f64": run(cfg_f64)}
-        shipped = rpca.refined_eigh
-        rpca.refined_eigh = refined_eigh_reference
+        shipped = rpca.refined_eigh, ialm_trip.refined_eigh, rpca.trip_route
+        rpca.refined_eigh = ialm_trip.refined_eigh = refined_eigh_reference
+        rpca.trip_route = lambda *args: False
         try:
             res["plain"] = run(DEFAULT_CONFIG)
         finally:
-            rpca.refined_eigh = shipped
+            rpca.refined_eigh, ialm_trip.refined_eigh, rpca.trip_route = shipped
         iters = {k: [int(n) for n in r.ialm_iters] for k, r in res.items()}
         partial = [False] * len(iters["plain"])
         if params["n_frames"] % T and partial:
