@@ -478,6 +478,7 @@ def k6_state(torch, gray, cfg):
     solver holds them (u8 X, bf16 A and Y)."""
     import dataclasses
 
+    from swiftwatcher_tpu_torch.ops import ialm_trip as k8_mod
     from swiftwatcher_tpu_torch.ops import rpca as rpca_mod
 
     B, T, H, W = gray.shape
@@ -486,17 +487,17 @@ def k6_state(torch, gray, cfg):
         dataclasses.replace(cfg, rpca_warm_basis=False), torch.float32, X.device)
     check(kw["fused_front"] and not kw["warm_basis"], "the cold gate did not pick K6 on the card")
     calls = []
-    plain_front = rpca_mod.ialm_front_reference
+    plain_front = k8_mod.ialm_front_reference
 
     def recording_front(*args):
         calls.append(args)
         return plain_front(*args)
 
-    rpca_mod.ialm_front_reference = recording_front
+    k8_mod.ialm_front_reference = recording_front
     try:
         rpca_mod.ialm_rpca_batched(X, **dict(kw, fused_front=False, fixed_iters=4))
     finally:
-        rpca_mod.ialm_front_reference = plain_front
+        k8_mod.ialm_front_reference = plain_front
     return calls[-1]
 
 
@@ -2753,14 +2754,13 @@ def phase19(np, torch, dev, cfg, card, gray_dev) -> dict:
         return refined_eigh_reference(G)
 
     # the plain chain: the seed's and the trips' refined eigh, and the trips
-    # off K8 (ops/ialm_trip.py)
-    rpca_mod.refined_eigh = k8_mod.refined_eigh = recording
-    rpca_mod.trip_route = lambda *args: False
+    # off K8, all in ops/ialm_trip.py
+    route = k8_mod.kernel_route
+    k8_mod.refined_eigh, k8_mod.kernel_route = recording, (lambda *args: False)
     try:
         m_plain, it_plain = rpca_mod.rpca_motion_window_batched(gray_dev, cfg)
     finally:
-        rpca_mod.refined_eigh = k8_mod.refined_eigh = refined_eigh
-        rpca_mod.trip_route = k8_mod.kernel_route
+        k8_mod.refined_eigh, k8_mod.kernel_route = refined_eigh, route
     B, n = captured[0].shape[0], captured[0].shape[-1]
     print(f"phase 19 K7 input: {len(captured)} Gram batches of {tuple(captured[0].shape)} "
           f"from a warm solve of {tuple(gray_dev.shape)} (IALM iters "
@@ -2894,11 +2894,12 @@ def phase20(np, torch, dev, cfg, card, bench, crop) -> dict:
         states.append((A_s.clone(), Y_s.clone(), mu.clone(), V0.clone()))
         return plain(X, A_s, Y_s, mu, V0, *args)
 
-    rpca_mod.trip_route, rpca_mod.ialm_trip_reference = (lambda *a: False), recording
+    route = k8.kernel_route
+    k8.kernel_route, k8.ialm_trip_reference = (lambda *a: False), recording
     try:
         m_plain, it_plain = rpca_mod.rpca_motion_window_batched(gray, cfg)
     finally:
-        rpca_mod.trip_route, rpca_mod.ialm_trip_reference = k8.kernel_route, plain
+        k8.kernel_route, k8.ialm_trip_reference = route, plain
     torch.cuda.synchronize()
     check(states[0][0].dtype == torch.bfloat16 and Xs.dtype == torch.uint8,
           "phase 20: the shipped solve holds X as u8 and its state as bf16")

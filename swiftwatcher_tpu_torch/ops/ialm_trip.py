@@ -1,7 +1,7 @@
-"""K8: the warm IALM trip, one pass of each of two kernels over the windows.
+"""The batched IALM solver's trip, and K8, its warm trip in two kernels.
 
-A warm trip of ops/rpca.py's batched solver, per window of a (B, T, P)
-state with its scalar mu and carried basis V0 (T x T):
+One trip of ops/rpca.py's batched solver, per window of a (B, T, P) state
+with its scalar mu and basis V0 (T x T):
 
     E, M  = the front of A, Y and X (ops/ialm_front.py:front_chain)
     W1    = V0^T M;   C = W1 W1^T (summed over the pixels, and the group)
@@ -9,20 +9,26 @@ state with its scalar mu and carried basis V0 (T x T):
     Q     = (Vn diag((S - 1/mu) / max(S, floor))) V1^T
     Aupd  = Q W1;   Z = X - Aupd - E;   Ynew = Y + mu Z;   mu <- min(mu rho, mu mu_cap)
 
-`ialm_trip_reference` is that chain in plain PyTorch, the solver's route on
-the CPU, in f64, for T > 32 and on the cold start (which forms its basis
-from K6's Gram; `finish_trip` is the part the two share).  On a CUDA f32
-solve with T <= 32 whose X is held u8 or f32 and A, E, Y bf16 or f32
-(`kernel_route`), `ialm_trip` runs csrc/ialm_trip.cu instead: K8a reads X,
-A and Y once and returns C, the T x T work between runs in PyTorch (K7 on
-C, then `rotation`), and K8b reads them again and writes A, E and Y in
-place, rounded to their storage type, with each window's sum of Z^2.  A
-window whose `active` flag is false is left as it is (the plain loop's
-`torch.where` freeze).  The kernels' E and their stores' rounding are the
-plain chain's bit for bit; W1, C, Aupd and the sum of Z^2 sum in orders of
-their own (per column, then the blocks' partials in a fixed order: the
-trips repeat bit for bit from run to run), held to the chain within
-tolerances by tests/test_torch_ialm_trip.py and chip_smoke.py phase 20.
+A warm trip carries V0 from the last; the solver seeds it from M0 = X +
+Y0 / mu0 (`seed_basis`).  A cold trip takes V0 from the refined eigh of
+M M^T, with E, M and that Gram from K6 where the solver's fused_front is
+set (ops/ialm_front.py).  Every refined eigh of a batched solve is here.
+
+`ialm_trip` is the solver's only trip: it updates A, E and Y in place, each
+rounded to its storage dtype, for the windows whose `active` flag is set; an
+inactive window keeps them bit for bit.  It picks its route from the
+tensors and `warm`.  A warm CUDA f32 solve with T <= 32 whose X is held u8
+or f32 and A, E, Y all bf16 or all f32 (`kernel_route`) runs
+csrc/ialm_trip.cu: K8a reads X, A and Y once and returns C, the T x T work
+between runs in PyTorch (K7 on C, then `rotation`), and K8b reads them
+again and writes A, E and Y with each window's sum of Z^2.  Everywhere else
+(CPU, f64, T > 32, the cold start) the trip is the plain chain,
+`ialm_trip_reference`, stored into A, E and Y through `torch.where`.  The
+kernels' E and their stores' rounding are the plain chain's bit for bit;
+W1, C, Aupd and the sum of Z^2 sum in orders of their own (per column, then
+the blocks' partials in a fixed order: the trips repeat bit for bit from
+run to run), held to the chain within tolerances by
+tests/test_torch_ialm_trip.py and chip_smoke.py phase 20.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 from .. import build
 from ..utils.metrics import span
-from .ialm_front import front_chain
+from .ialm_front import front_chain, ialm_front, ialm_front_reference
 from .refined_eigh import refined_eigh
 
 KERNEL_THREADS = 256
@@ -78,6 +84,17 @@ def kernel_route(device: torch.device, dtype: torch.dtype, shape, x_dtype: torch
     )
 
 
+def seed_basis(X, Y0, mu0, warm: bool, allsum: Callable = _same) -> torch.Tensor:
+    """V0 of the first trip, (B, T, T) in X's dtype: warm, the refined
+    eigenbasis of M0 M0^T with M0 = X + Y0 / mu0 (A0 = E0 = 0); cold, the
+    identity (a cold trip forms its own)."""
+    B, T = X.shape[0], X.shape[1]
+    if not warm:
+        return torch.eye(T, dtype=X.dtype, device=X.device).expand(B, T, T)
+    M0 = X + (1.0 / mu0)[..., None, None] * Y0
+    return refined_eigh(allsum(M0 @ _t(M0)))[1]
+
+
 def rotation(C: torch.Tensor, V0: torch.Tensor, mu: torch.Tensor):
     """(Q, Vn) of the polish round from the rotated columns' Gram C:
     A = Vn diag(ratio) Vn^T M = [(Vn diag ratio) V1^T] (V0^T M) = Q W1."""
@@ -90,35 +107,45 @@ def rotation(C: torch.Tensor, V0: torch.Tensor, mu: torch.Tensor):
     return (Vn * ratio[..., None, :]) @ _t(V1), Vn
 
 
-def finish_trip(Xs, Y_s, E, M, V0, mu, rho: float, mu_cap: float,
-                allsum: Callable = _same):
-    """The trip after its front: W1, the rotation, Aupd, Z and Ynew.
-    Returns (Aupd, E, Ynew, mu_new, Vn, Z) in mu's dtype."""
-    dtype = mu.dtype
+def ialm_trip_reference(Xs, A_s, Y_s, mu, V0, lmbda: float, rho: float, mu_cap: float,
+                        allsum: Callable = _same, front: Optional[Callable] = None):
+    """One trip as the plain chain: (Aupd, Eupd, Ynew, mu_new, Vn, Z) in
+    mu's dtype, from X, A and Y as the solver holds them.  Warm where
+    `front` is None; cold, E, M and G come from `front` (ialm_front or
+    ialm_front_reference) and V0 is the refined eigenbasis of G."""
+    if front is None:
+        E, M = front_chain(Xs, A_s, Y_s, 1.0 / mu, lmbda)
+    else:
+        E, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
+        V0 = refined_eigh(allsum(G))[1]
     W1 = _t(V0) @ M
     Q, Vn = rotation(allsum(W1 @ _t(W1)), V0, mu)
     Aupd = Q @ W1
-    Z = Xs.to(dtype) - Aupd - E
-    Ynew = Y_s.to(dtype) + mu[..., None, None] * Z
-    mu_new = torch.minimum(mu * rho, mu * mu_cap)
-    return Aupd, E, Ynew, mu_new, Vn, Z
-
-
-def ialm_trip_reference(Xs, A_s, Y_s, mu, V0, lmbda: float, rho: float, mu_cap: float,
-                        allsum: Callable = _same):
-    """One warm trip as the plain chain: (Aupd, Eupd, Ynew, mu_new, Vn, Z)
-    in mu's dtype, from X, A and Y as the solver holds them."""
-    E, M = front_chain(Xs, A_s, Y_s, 1.0 / mu, lmbda)
-    return finish_trip(Xs, Y_s, E, M, V0, mu, rho, mu_cap, allsum)
+    Z = Xs.to(mu.dtype) - Aupd - E
+    Ynew = Y_s.to(mu.dtype) + mu[..., None, None] * Z
+    return Aupd, E, Ynew, torch.minimum(mu * rho, mu * mu_cap), Vn, Z
 
 
 def ialm_trip(Xs, A, E, Y, mu, V0, active: Optional[torch.Tensor], lmbda: float, rho: float,
-              mu_cap: float, allsum: Callable = _same):
-    """One warm trip on K8a, K7 and K8b, in an `ialm_trip` span: A, E and Y
-    (CUDA, as kernel_route takes them) are updated in place for the
-    windows whose `active` flag is set (all, where active is None).
-    Returns (mu_new, Vn, zz): zz is each window's sum of Z^2 over its
-    pixels (0 for an inactive window)."""
+              mu_cap: float, allsum: Callable = _same, warm: bool = True,
+              fused_front: bool = False):
+    """One trip of the batched solver: A, E and Y updated in place for the
+    windows whose `active` flag is set (all, where active is None), each
+    rounded to its own dtype.  Returns (mu_new, Vn, zz), zz each window's
+    sum of Z^2 over its pixels; an inactive window's are for the caller to
+    discard (K8 leaves its zz 0).  On K8 (kernel_route) the trip runs in
+    an `ialm_trip` span and counts in `ialm_trip.launches`."""
+    if not kernel_route(Xs.device, mu.dtype, Xs.shape, Xs.dtype, A.dtype, Y.dtype, warm):
+        front = None if warm else ialm_front if fused_front else ialm_front_reference
+        Aupd, Eupd, Ynew, mu_new, Vn, Z = ialm_trip_reference(
+            Xs, A, Y, mu, V0, lmbda, rho, mu_cap, allsum, front)
+        for state, new in ((A, Aupd), (E, Eupd), (Y, Ynew)):
+            new = new.to(state.dtype)
+            if active is not None:
+                new = torch.where(active[..., None, None], new, state)
+            state.copy_(new)
+        return mu_new, Vn, (Z * Z).sum(dim=(-2, -1))
+    V0 = V0.contiguous()
     inv_mu = 1.0 / mu
     with span("ialm_trip"):
         C = launch_front(Xs, A, Y, inv_mu, V0, active, lmbda)

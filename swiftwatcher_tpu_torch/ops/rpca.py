@@ -11,13 +11,13 @@ kernel K7 on a CUDA f32 solve, else torch.linalg.eigh and qr), then a
 one-sided polish round that restores relative accuracy on the small
 singular values.  The products are `torch.matmul`.
 
-The warm-basis solver (the shipped default) carries the eigenbasis across
-iterations; on a CUDA f32 solve its trips run on the two kernels of K8
-(ops/ialm_trip.py), which update A, E and Y in place, and elsewhere on the
-plain chain `ialm_trip_reference`.  The cold-start solver forms each
-iterate's T x T Gram and takes its basis from a fresh eigh; on the card
-that Gram comes from the fused front kernel K6 (ops/ialm_front.py)
-together with E and M.
+The batched solver's loop makes one call a trip, to `ialm_trip`
+(ops/ialm_trip.py), which updates A, E and Y in place and picks its own
+route: K8's two kernels on a warm CUDA f32 solve, else the plain chain.  The
+warm-basis solver (the shipped default) carries the eigenbasis across
+trips, seeded there by `seed_basis`; the cold-start solver forms each
+iterate's T x T Gram and takes its basis from a fresh eigh, the Gram from
+the fused front kernel K6 (ops/ialm_front.py) where fused_front is set.
 
 Quirks of the reference kept on purpose:
   * the svp length quirk: every iteration keeps all T singular values, so
@@ -48,9 +48,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, PipelineConfig
 from ..utils.metrics import span
-from .ialm_front import ialm_front, ialm_front_reference
-from .ialm_trip import finish_trip, ialm_trip, ialm_trip_reference
-from .ialm_trip import kernel_route as trip_route
+from .ialm_trip import ialm_trip, seed_basis
 from .refined_eigh import refined_eigh
 
 _DTYPES = {
@@ -172,11 +170,8 @@ def ialm_rpca_batched(
     warm_basis carries the row-space eigenbasis across iterations (seeded
     from one Gram before the loop); without it every iteration forms the
     Gram of its iterate M and starts the polish from that Gram's eigh.
-    fused_front (cold start only) takes E, M and that Gram from K6, which
-    launches on a CUDA f32 solve; otherwise they come from the plain chain.
-    A warm solve runs its trips on K8 wherever ialm_trip.kernel_route
-    takes it (read from X's device, dtype and shape and the storage
-    dtypes), else on the plain chain.
+    fused_front (cold start only) takes E, M and that Gram from K6.  Each
+    trip is one `ialm_trip`, which picks K8 or the plain chain itself.
 
     x_store_dtype holds X between uses ('uint8' is lossless for uint8-origin
     windows); store_y_dtype / store_ae_dtype round the loop-carried Y and
@@ -189,9 +184,6 @@ def ialm_rpca_batched(
     (parallel.mesh.AxisGroup); None solves X alone.  Every rank of the
     group sees the same reduced norms, so all take the same iterations."""
     dtype = X.dtype
-    sd_x = _DTYPES[x_store_dtype] if x_store_dtype else None
-    sd_y = _DTYPES[store_y_dtype] if store_y_dtype else None
-    sd_ae = _DTYPES[store_ae_dtype] if store_ae_dtype else None
 
     def allsum(v):
         return group.sum(v) if group is not None else v
@@ -204,74 +196,38 @@ def ialm_rpca_batched(
     dual = torch.maximum(frob, norm_inf)
     Y0 = X / dual[..., None, None]
     mu0 = 1.25 / frob
-    Xs = X.to(sd_x) if sd_x is not None else X
-
-    front = ialm_front if fused_front else ialm_front_reference
-
-    def update(A_s, Y_s, mu, V):
-        if warm_basis:
-            return ialm_trip_reference(Xs, A_s, Y_s, mu, V, lmbda, rho, mu_cap, allsum)
-        Eupd, M, G = front(Xs, A_s, Y_s, 1.0 / mu, lmbda)
-        _, V0 = refined_eigh(allsum(G))
-        return finish_trip(Xs, Y_s, Eupd, M, V0, mu, rho, mu_cap, allsum)
-
-    def store(a, sd):
-        return a.to(sd) if sd is not None else a
-
-    B, T = X.shape[0], X.shape[1]
-    state_dtype = sd_ae if sd_ae is not None else dtype
-    fused_trip = trip_route(X.device, dtype, X.shape, Xs.dtype, state_dtype,
-                            sd_y if sd_y is not None else dtype, warm_basis)
-    if warm_basis:
-        # Seed the carried basis from M0 = X + Y0 / mu0 (A0 = E0 = 0).
-        M0 = X + (1.0 / mu0)[..., None, None] * Y0
-        _, V = refined_eigh(allsum(M0 @ _t(M0)))
-    else:
-        V = torch.eye(T, dtype=dtype, device=X.device).expand(B, T, T)
-    A = torch.zeros_like(X, dtype=state_dtype)
-    # K8 writes A and E in place, so they are two tensors there
-    E = torch.zeros_like(A) if fused_trip else A
-    Y = store(Y0, sd_y)
+    Xs = X.to(_DTYPES.get(x_store_dtype, dtype))
+    V = seed_basis(X, Y0, mu0, warm_basis, allsum)
+    # the trip updates A, E and Y in place, each in its storage dtype
+    A = torch.zeros_like(X, dtype=_DTYPES.get(store_ae_dtype, dtype))
+    E = torch.zeros_like(A)
+    Y = Y0.to(_DTYPES.get(store_y_dtype, dtype))
     mu = mu0
-
-    def trip(active):
-        """A fused trip (A, E, Y updated in place where active): (mu_new,
-        Vn, err_new)."""
-        mu_new, Vn, zz = ialm_trip(Xs, A, E, Y, mu, V.contiguous(), active, lmbda, rho,
-                                   mu_cap, allsum)
-        return mu_new, Vn, torch.sqrt(allsum(zz)) / frob
-
-    if fixed_iters > 0:
-        for _ in range(fixed_iters):
-            if fused_trip:
-                mu, V, _ = trip(None)
-                continue
-            Aupd, Eupd, Ynew, mu, V, _ = update(A, Y, mu, V)
-            A, E, Y = store(Aupd, sd_ae), store(Eupd, sd_ae), store(Ynew, sd_y)
-        iters = torch.full((B,), fixed_iters, dtype=torch.int32, device=X.device)
-        return A.to(dtype), E.to(dtype), iters
-
+    B = X.shape[0]
     itr = torch.zeros((B,), dtype=torch.int32, device=X.device)
     err = torch.full((B,), float("inf"), dtype=dtype, device=X.device)
-    while True:
-        active = (err >= tol) & (itr < max_iter)                     # (B,)
-        with span("sync.ialm_stop"):
-            done = not bool(active.any())
-        if done:
-            break
-        keep = active[..., None, None]
-        if fused_trip:
-            mu_new, Vn, err_new = trip(active)
-        else:
-            Aupd, Eupd, Ynew, mu_new, Vn, Z = update(A, Y, mu, V)
-            err_new = torch.sqrt(allsum((Z * Z).sum(dim=(-2, -1)))) / frob
-            A = torch.where(keep, store(Aupd, sd_ae), A)
-            E = torch.where(keep, store(Eupd, sd_ae), E)
-            Y = torch.where(keep, store(Ynew, sd_y), Y)
+    trips = 0
+    while trips < fixed_iters or fixed_iters <= 0:
+        active = None
+        if fixed_iters <= 0:
+            active = (err >= tol) & (itr < max_iter)                 # (B,)
+            with span("sync.ialm_stop"):
+                done = not bool(active.any())
+            if done:
+                break
+        mu_new, Vn, zz = ialm_trip(Xs, A, E, Y, mu, V, active, lmbda, rho, mu_cap, allsum,
+                                   warm_basis, fused_front)
+        err_new = torch.sqrt(allsum(zz)) / frob
+        trips += 1
+        if active is None:
+            mu, V = mu_new, Vn
+            continue
         mu = torch.where(active, mu_new, mu)
-        V = torch.where(keep, Vn, V)
+        V = torch.where(active[..., None, None], Vn, V)
         itr = itr + active.to(torch.int32)
         err = torch.where(active, err_new, err)
+    if fixed_iters > 0:
+        itr = torch.full((B,), fixed_iters, dtype=torch.int32, device=X.device)
     return A.to(dtype), E.to(dtype), itr
 
 

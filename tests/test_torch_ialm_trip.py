@@ -6,6 +6,8 @@ phase 20 holds them against `ialm_trip_reference`.  Here, on the CPU:
   * the solver's plain route is the pre-change chain bit for bit (its
     `update`, and the whole solve, warm and cold, copied below as they
     stood), with f32 and bf16 state and u8 and f32 X;
+  * `ialm_trip` on CPU tensors, warm and cold, updates A, E and Y in place
+    as the pre-change loop's stores and freeze did;
   * a numpy f32 emulation of K8a and K8b, at the kernels' per-column order
     (W1 over the rows in order, Aupd over the padded rows in order, each
     step an f32 fma) and their block schedule (the Gram's 4 x 4 blocks and
@@ -201,6 +203,30 @@ def test_solver_on_the_cpu_is_the_pre_change_solver(rng, warm, x_store, state, f
               store_ae_dtype=state, fixed_iters=fixed)
     for g, w in zip(ialm_rpca_batched(X, **kw), _pre_change_solver(X, **kw)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("warm,fused", [(True, False), (False, False), (False, True)])
+@pytest.mark.parametrize("x_u8,state", [(False, torch.float32), (True, torch.bfloat16)])
+@pytest.mark.parametrize("mask", [None, [True, False, True]])
+def test_trip_on_the_cpu_is_the_pre_change_trip_and_freeze(rng, warm, fused, x_u8, state,
+                                                           mask):
+    """ialm_trip's plain route: A, E and Y in place as the pre-change loop
+    stored and froze them, and (mu_new, Vn, zz) as its trip gave them, bit
+    for bit.  A cold trip is the warm chain from the eigenbasis of K6's
+    plain Gram."""
+    Xs, A, Y, mu, V = _trip_state(_windows(rng, 3, 21, 517), 2, x_u8, state)
+    E = torch.full_like(A, 7.0)
+    V0 = V if warm else refined_eigh(ialm_front_reference(Xs, A, Y, 1.0 / mu, LMBDA)[2])[1]
+    Aupd, Eupd, Ynew, mu_new, Vn, Z = _pre_change_update(Xs, A, Y, mu, V0, LMBDA, RHO, MU_CAP)
+    active = None if mask is None else torch.tensor(mask)
+    want = [new.to(state) if active is None else torch.where(active[..., None, None],
+                                                             new.to(state), old)
+            for new, old in ((Aupd, A), (Eupd, E), (Ynew, Y))]
+    got = [t.clone() for t in (A, E, Y)]
+    out = k8.ialm_trip(Xs, *got, mu, V, active, LMBDA, RHO, MU_CAP, warm=warm, fused_front=fused)
+    want += [mu_new, Vn, (Z * Z).sum(dim=(-2, -1))]
+    for g, w in zip(got + list(out), want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _fma(a, b, c):

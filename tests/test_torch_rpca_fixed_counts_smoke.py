@@ -40,13 +40,14 @@ def test_torch_rpca_fixed_counts_campaign_smoke(tmp_path):
 def test_torch_rpca_window_iters_campaign_smoke(tmp_path):
     """--window-iters on one scene on the CPU, where the shipped route is
     the plain chain: the same iterations and counts, f64's beside them, and
-    the solver's refined eigh put back afterwards."""
+    the refined eigh and the route of ops/ialm_trip.py put back afterwards."""
     import torch_rpca_fixed_counts
 
-    from swiftwatcher_tpu_torch.ops import rpca
+    from swiftwatcher_tpu_torch.ops import ialm_trip
     from swiftwatcher_tpu_torch.ops.refined_eigh import refined_eigh
 
     out = tmp_path / "rwi_smoke.json"
+    route = ialm_trip.kernel_route
     summary = torch_rpca_fixed_counts.window_iters_campaign(
         scenes=1, campaign_seed=20260820, out=str(out), device=torch.device("cpu"))
     (row,) = summary["results"]
@@ -58,5 +59,6 @@ def test_torch_rpca_window_iters_campaign_smoke(tmp_path):
     windows = len(row["iters"]["plain"])
     assert sum(summary["windows_by_gap"]["shipped_full"].values()) + sum(
         summary["windows_by_gap"]["shipped_partial"].values()) == windows
-    assert rpca.refined_eigh is refined_eigh
+    assert ialm_trip.refined_eigh is refined_eigh
+    assert ialm_trip.kernel_route is route
     assert json.loads(out.read_text())["results"] == summary["results"]

@@ -127,7 +127,7 @@ def window_iters_campaign(scenes: int, campaign_seed: int = 20260820, out: str |
     for the shipped and the f64 solve, full and partial windows apart."""
     from torch_parity_fuzz import _counts, scene_params
 
-    from swiftwatcher_tpu_torch.ops import ialm_trip, rpca
+    from swiftwatcher_tpu_torch.ops import ialm_trip
     from swiftwatcher_tpu_torch.ops.refined_eigh import refined_eigh_reference
 
     rng = np.random.default_rng(campaign_seed)
@@ -168,13 +168,12 @@ def window_iters_campaign(scenes: int, campaign_seed: int = 20260820, out: str |
                              device, tracker_impl=tracker)
 
         res = {"shipped": run(DEFAULT_CONFIG), "f64": run(cfg_f64)}
-        shipped = rpca.refined_eigh, ialm_trip.refined_eigh, rpca.trip_route
-        rpca.refined_eigh = ialm_trip.refined_eigh = refined_eigh_reference
-        rpca.trip_route = lambda *args: False
+        shipped = ialm_trip.refined_eigh, ialm_trip.kernel_route
+        ialm_trip.refined_eigh, ialm_trip.kernel_route = refined_eigh_reference, lambda *a: False
         try:
             res["plain"] = run(DEFAULT_CONFIG)
         finally:
-            rpca.refined_eigh, ialm_trip.refined_eigh, rpca.trip_route = shipped
+            ialm_trip.refined_eigh, ialm_trip.kernel_route = shipped
         iters = {k: [int(n) for n in r.ialm_iters] for k, r in res.items()}
         partial = [False] * len(iters["plain"])
         if params["n_frames"] % T and partial:
