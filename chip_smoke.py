@@ -197,7 +197,19 @@ path (`run_video`) end to end:
      K8a's and K8b's times beside their byte bound, the trip's (with K7
      and the T x T work) beside the plain trip's; run_video at a batch of
      64 windows: ialm_trip.launches equal to its `ialm_trip` spans and to
-     its trips.  `chip_smoke.py --phase 20` runs phases 1, 2 and 20 alone.
+     its trips;
+ 21. K9 (csrc/stabilize.cu, stabilisation's SAD search K9a and gather K9b)
+     vs stabilize_window_reference at the cells' (64, 21, 216, 432), J = 3,
+     on crops of the 1080p scene shaken by up to 2 px a frame (the jitter
+     traffic's shake) against the ROI frame's pose, the same batch against
+     each window's mean, and flat batches whose candidates all tie: aligned
+     bytes and shifts bit-equal, bit-identical in two runs, one launch a
+     call; the same at widths 730 and 990, J = 1 to 4, whose staged rows
+     fill a block's 48 KiB to within the static bytes; K9a's, K9b's and the
+     plain chain's times beside K9's bound; and
+     run_video at a batch of 64 windows with stabilize_max_shift = 3: one
+     `stabilize.launches` a `stabilize` span.
+     `chip_smoke.py --phase 20` (or 21) runs phases 1, 2 and that phase alone.
 
 The 1080p scene is the bench scene (make_video at 1080 x 1920) with a
 large bird passing close to the camera in 4 frames of its 63: a 64 x 64
@@ -215,8 +227,9 @@ bound by neither but by the latency of its frame chain, which its entry
 gives as `latency_bound_ms` (phase 11), beside `kernels_per_launch` (the
 kernels its launcher counted over the main path's calls, per call); K7 is
 bound by the latency of its barrier rounds (phase 19); K8's `ms` is its
-two kernels' (phase 20).  No single PyTorch call computes any of K1-K8 or
-T1, so `library_ms` is null.  Exits
+two kernels' (phase 20); K9's bound is K9a's integer throughput and K9b's bytes
+(phase 21).  No single PyTorch call computes any of K1-K9 or T1, so
+`library_ms` is null.  Exits
 nonzero, printing no result, on any failure or when no CUDA device exists.
 """
 
@@ -1262,6 +1275,9 @@ def run() -> None:
     t0 = time.perf_counter()
     k8 = phase20(np, torch, dev, cfg, card, bench, ((x1, y1), (x2, y2)))
     print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    k9 = phase21(np, torch, dev, cfg, card, bench, ((x1, y1), (x2, y2)))
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # every kernel's bound at the inputs timed above
     hw = H * W
@@ -1276,6 +1292,7 @@ def run() -> None:
         "track_window": t1_bound,
         "refined_eigh": (k7["latency_bound_ms"], "latency"),
         "ialm_trip": (k8["bytes_bound_ms"], "bytes"),
+        "stabilize_window": (k9["bound_ms"], k9["bound_by"]),
     }
     kernels = [
         {"name": "fused_motion_filter", "route": "cuda",
@@ -1316,6 +1333,7 @@ def run() -> None:
         "latency_bound_ms": t1_latency})
     kernels.append({**k7, "launches": dev_launches["refined_eigh"]})
     kernels.append(k8)
+    kernels.append(k9)
     for k in kernels:
         k["bound_ms"], k["bound_by"] = bounds[k["name"]]
         k["library_ms"] = None
@@ -3015,8 +3033,128 @@ def phase20(np, torch, dev, cfg, card, bench, crop) -> dict:
             "trip_ms": trip_ms, "plain_ms": plain_ms, "bytes_bound_ms": bound_ms}
 
 
-def run_phase20() -> None:
-    """Phases 1, 2 and 20 alone (`chip_smoke.py --phase 20`)."""
+# SM clock (the H100 SXM's highest, 1980 MHz) and INT32 lanes an SM:
+# the most vabsdiff4 instructions K9a can retire a second.
+SM_HZ = 1.98e9
+INT32_LANES_PER_SM = 64
+
+
+def phase21(np, torch, dev, cfg, card, bench, crop, B: int = 64) -> dict:
+    """K9 (csrc/stabilize.cu) against stabilize_window_reference on the
+    card at the cells' (B = 64, 21, 216, 432), J = 3: shaken crops against
+    the ROI frame's pose and against each window's mean, flat batches that
+    tie everywhere; widths 730 and 990 at J = 1 to 4, where the staged
+    rows come nearest a block's shared memory; the times; and its
+    launches on run_video.  Returns K9's
+    entry for the kernels line."""
+    from swiftwatcher_tpu_torch.io.source import LoopingArraySource
+    from swiftwatcher_tpu_torch.ops import stabilize as k9
+    from swiftwatcher_tpu_torch.ops.color import bgr_to_gray_host
+    from swiftwatcher_tpu_torch.pipeline.runner import run_video
+    from swiftwatcher_tpu_torch.utils.metrics import RunMetrics, bind
+
+    J, T = 3, cfg.window_size
+    (x1, y1), (x2, y2) = crop
+    H, W = y2 - y1, x2 - x1
+    n = np.arange(B * T)
+    idx = (n + 7 * (n // (4 * T))) % len(bench.frames)
+    planted = np.random.default_rng(21).integers(-2, 3, size=(B * T, 2))
+    shaken = np.stack([bgr_to_gray_host(bench.frames[i, y1 + dy:y2 + dy, x1 + dx:x2 + dx])
+                       for i, (dy, dx) in zip(idx, planted)]).reshape(B, T, H, W)
+    gray = torch.from_numpy(shaken).to(dev)
+    pose = torch.from_numpy(bgr_to_gray_host(bench.frames[0, y1:y2, x1:x2])).to(dev)
+    flat = torch.full((4, T, H, W), 90, dtype=torch.uint8, device=dev)
+    check(k9.kernel_route(dev, gray.dtype, gray.shape, gray.is_contiguous(), J, pose.dtype,
+                          pose.shape), "phase 21: the cells' batch does not take K9")
+    for name, g, ref in (("shaken, the ROI frame's pose", gray, pose),
+                         ("shaken, each window's mean", gray, None),
+                         ("flat, all tie, a pose", flat, pose),
+                         ("flat, all tie, each window's mean", flat, None)):
+        with bind(RunMetrics()) as m:
+            got, again = k9.stabilize_window(g, J, ref), k9.stabilize_window(g, J, ref)
+        want = k9.stabilize_window_reference(g, J, ref)
+        torch.cuda.synchronize()
+        calls = m.counters.get("stabilize.launches", 0)
+        check(calls == 2, f"phase 21 {name}: {calls} K9 calls for 2")
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"phase 21 {name}: K9 differs between two runs")
+        off = int((got[0] != want[0]).sum())
+        s_off = int((got[1] != want[1]).any(-1).sum())
+        print(f"phase 21 {name} {tuple(g.shape)}: {off} bytes and {s_off} shifts differ from "
+              f"the plain chain; shifts {got[1].min().item()}..{got[1].max().item()}",
+              flush=True)
+        check(off == 0 and s_off == 0, f"phase 21 {name}: K9 is not the plain chain")
+        if ref is pose and g is gray:
+            recovered = int((got[1].reshape(-1, 2).cpu().numpy() == -planted).all(1).sum())
+            print(f"phase 21: {recovered} of {B * T} planted shifts recovered exactly",
+                  flush=True)
+        if g is flat:
+            check(bool((got[1] == -J).all()), "phase 21: a tie did not go to candidate 0")
+
+    # widths whose staged rows fill a block's 48 KiB to within the static
+    # bytes (strides 768 and 1024), each J: K9 runs and is the plain chain
+    for We in (730, 990):
+        for Je in range(1, k9.MAX_J + 1):
+            off_e = planted[:2 * T] % (Je + 1)
+            edge = torch.from_numpy(np.stack([
+                bgr_to_gray_host(bench.frames[i, 100 + dy:164 + dy, 100 + dx:100 + We + dx])
+                for i, (dy, dx) in zip(idx[:2 * T], off_e)]).reshape(2, T, 64, We)).to(dev)
+            ref_e = torch.from_numpy(bgr_to_gray_host(bench.frames[0, 100:164, 100:100 + We]))
+            ref_e = ref_e.to(dev)
+            rows, stride = k9.search_layout(64, We, Je)
+            check(k9.kernel_route(dev, edge.dtype, edge.shape, True, Je, ref_e.dtype,
+                                  ref_e.shape), f"phase 21: width {We} does not take K9")
+            for ref in (ref_e, None):
+                with bind(RunMetrics()) as m:
+                    got = k9.stabilize_window(edge, Je, ref)
+                want = k9.stabilize_window_reference(edge, Je, ref)
+                torch.cuda.synchronize()
+                check(m.counters.get("stabilize.launches", 0) == 1
+                      and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"phase 21: width {We}, J = {Je}: K9 is not the plain chain")
+            print(f"phase 21 width {We}, J = {Je} (rows {rows}, stride {stride}: "
+                  f"{(2 * rows + 2 * Je) * stride} dynamic bytes): bit-equal to the plain "
+                  f"chain, pose and each window's mean", flush=True)
+
+    frames, refs = gray.reshape(-1, H, W), pose.reshape(1, H, W)
+    sads = k9.launch_search(frames, refs, J)
+    search_ms = time_ms(torch, lambda: k9.launch_search(frames, refs, J), 20, "K9a")
+    gather_ms = time_ms(torch, lambda: k9.launch_gather(frames, sads, J), 20, "K9b")
+    call_ms, plain_ms = alternate_ms(
+        torch, lambda: k9.stabilize_window_reference(gray, J, pose),
+        lambda: k9.stabilize_window(gray, J, pose), reps=3, what="K9")
+    N, C = B * T, (2 * J + 1) ** 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int_ms = N * H * W * C / 4 / (sms * INT32_LANES_PER_SM * SM_HZ) * 1e3
+    search_bytes_ms = (N + 1) * H * W / HBM_BYTES_PER_S * 1e3
+    gather_bytes_ms = 2 * N * H * W / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(int_ms, search_bytes_ms) + gather_bytes_ms
+    print(f"phase 21 K9 time at {tuple(gray.shape)}, J = {J}: K9a {search_ms:.4f} ms (integer "
+          f"throughput bound {int_ms:.4f}: {N * H * W * C} absolute differences, 4 a vabsdiff4; "
+          f"bytes {search_bytes_ms:.4f}), K9b {gather_ms:.4f} ms (bytes {gather_bytes_ms:.4f}); "
+          f"the call {call_ms:.4f} ms, the plain chain {plain_ms:.4f} ms [{card}]", flush=True)
+
+    # its launches on run_video at the cells' batch: one a stabilize span
+    cfg64 = dataclasses.replace(cfg, batch_windows=B, stabilize_max_shift=J)
+    r = run_video(LoopingArraySource(bench.frames, total=2 * B * T, fps=bench.fps),
+                  bench.corners, cfg64, dev)
+    launches = r.metrics.counters.get("stabilize.launches", 0)
+    spans = r.metrics.counters.get("stabilize", 0)
+    print(f"phase 21 run_video at batch {B}, J = {J}: stabilize.launches {launches}, "
+          f"stabilize spans {spans} ({r.metrics.batches} batches)", flush=True)
+    check(launches == spans == r.metrics.batches > 0,
+          f"phase 21: launches {launches}, spans {spans}")
+    return {"name": "stabilize_window", "route": "cuda",
+            "source": "swiftwatcher_tpu_torch/csrc/stabilize.cu",
+            "replaces": "none: swiftwatcher_tpu/ops/stabilize.py:stabilize_window, plain XLA",
+            "launches": launches, "max_abs_err": 0,  # bit-equal, checked
+            "ms": search_ms + gather_ms, "search_ms": search_ms, "gather_ms": gather_ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "int_bound_ms": int_ms,
+            "bound_ms": bound_ms, "bound_by": "integer throughput (K9a) + bytes (K9b)"}
+
+
+def run_alone(phase: int) -> None:
+    """Phases 1, 2 and `phase` (20 or 21) alone (`chip_smoke.py --phase 20`)."""
     import numpy as np
     import torch
 
@@ -3039,16 +3177,16 @@ def run_phase20() -> None:
                        n_entering=2, n_crossing=1, n_vanishing=1)
     bench.frames = close_pass(np, bench.frames)
     t0 = time.perf_counter()
-    k8 = phase20(np, torch, dev, cfg, card, bench,
-                 crop_region_from_corners(bench.corners, cfg))
-    print(f"phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"kernels": [k8]}))
+    entry = (phase20 if phase == 20 else phase21)(
+        np, torch, dev, cfg, card, bench, crop_region_from_corners(bench.corners, cfg))
+    print(f"phase {phase} took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": [entry]}))
 
 
 def main() -> int:
     try:
-        if sys.argv[1:] == ["--phase", "20"]:
-            run_phase20()
+        if sys.argv[1:] in (["--phase", "20"], ["--phase", "21"]):
+            run_alone(int(sys.argv[2]))
         else:
             run()
     except (SmokeFailure, ImportError, RuntimeError, ValueError, OSError,

@@ -97,6 +97,10 @@ _SIGNATURES = {
         "swt_ialm_trip_front": [*[_VOID_P] * 8, *[_INT] * 6, _FLOAT, _VOID_P],
         "swt_ialm_trip_back": [*[_VOID_P] * 11, *[_INT] * 6, _FLOAT, _VOID_P],
     },
+    "stabilize": {
+        "swt_stabilize_search": [*[_VOID_P] * 3, *[_INT] * 8, _VOID_P],
+        "swt_stabilize_gather": [*[_VOID_P] * 4, *[_INT] * 4, _VOID_P],
+    },
     "refined_eigh": {
         "swt_refined_eigh": [*[_VOID_P] * 4, _INT, _INT, _INT, _FLOAT, _INT, _VOID_P],
     },

@@ -13,8 +13,9 @@ of names.  run_video binds its RunMetrics to its thread for the length of
 the call (`bind`), and the prefetcher's worker binds the same object on its
 own thread; the ops below the runner call the module-level `span`, which
 books into the run bound on the calling thread and, with no run bound,
-books nothing but still opens the trace range.  `counters` stays
-out of the manifest, whose keys are the JAX package's.
+books nothing but still opens the trace range; `count` books a counter
+with no span the same way.  `counters` stays out of the manifest, whose
+keys are the JAX package's.
 """
 
 from __future__ import annotations
@@ -144,6 +145,14 @@ def bind(metrics: Optional[RunMetrics]) -> Iterator[Optional[RunMetrics]]:
         yield metrics
     finally:
         _BOUND.metrics = before
+
+
+def count(name: str) -> None:
+    """Add 1 to counters[name] of the run bound on this thread, if any: a
+    counter with no span (a kernel's launches)."""
+    metrics = bound()
+    if metrics is not None:
+        metrics.counters[name] = metrics.counters.get(name, 0) + 1
 
 
 def span(name: str, trace_name: Optional[str] = None):
